@@ -8,14 +8,19 @@ Phases, each of which stops the script with a nonzero exit on failure:
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: every CUDA source of ``semantic_segmentation_torch/kernels/csrc``
    compiled with nvcc (one process each, in parallel) into build/kernels/;
-3. kernels against their plain PyTorch versions on the card, at the
-   trainer's shapes, TF32 off:
+3. kernels against their plain PyTorch versions on the card, TF32 off:
    - warp: (2, 256, 256, 1) binary masks under ``sample_affine_batch``
      draws and (2, 256, 256, 3) random floats, max |err| < 1e-4 and an
      identical > 0.1 mask; identity and flip matrices exact;
    - equalize: bit-exact on random uint8 (2, 256, 256, 1), a constant
      plane, a two-value plane, and the uint8 image of a full-width unet_256
      generator's output;
+   - histogram: bit-exact against its plain version and ``np.bincount`` on
+     the same four families at (2, 256, 256) and (4, 256, 256);
+   - down-conv: bf16, within 1e-2 of the plain version's largest magnitude
+     at the 9 flagship layers with C_in >= 8 (``bench.conv_down.LAYERS``)
+     and at C_in / C_out off multiples of 8 (12 -> 64, 16 -> 20, 12 -> 20);
+     C_in = 1 and 2 raise ``NotImplementedError``;
 4. the fake branch in context: warp -> threshold -> G -> min-max -> uint8 ->
    equalize -> gamma through the kernels and through the plain versions
    gives identical images;
@@ -23,19 +28,27 @@ Phases, each of which stops the script with a nonzero exit on failure:
    ``decay_only`` iterations at 32^2 in float32 from the same seed,
    batches and augment matrices; losses within rtol 1e-3, arch tables
    within 1e-6;
-6. the trainer: ``train()`` of the end2end_jsrt preset at full width
-   (256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base 64, bf16 autocast,
-   synthetic data) for 20 iterations with valid_step 10; finite losses,
-   best_val and test Dice produced, and each kernel launched once per unet
-   inner step (the launch counts are zeroed just before the run);
-7. timing, after the trainer so that the profiler cannot slow it: each
-   kernel's device time (torch.profiler) and its wrapper's call time (CUDA
-   events) on the inputs of phase 3, beside its plain version's and the
-   library call computing the same function where there is one
-   (``F.grid_sample`` for the warp; none for the equalize), and its bound.
+6. the stage-1 trainer: ``train_pix2pix.train()`` of the pix2pix_jsrt
+   preset at full width (256^2, batch 2, unet_256, ngf = ndf = 64, bf16
+   autocast, synthetic data) for 20 steps; finite losses, the two
+   checkpoint files written, no kernel launched (the path has none);
+7. the flagship trainer from that checkpoint: ``--run.pretrained_pix2pix``
+   gives G, D and the arch tables the saved values at the start; then
+   ``train()`` of the end2end_jsrt preset at full width (U-Net base 64)
+   for 20 iterations with valid_step 10; finite losses, best_val and test
+   Dice produced, and the warp and the equalize launched once per unet
+   inner step, the histogram and the down-conv never;
+8. timing, after the trainers so that the profiler cannot slow them: the
+   warp's and the equalize's device time (torch.profiler) and wrapper call
+   time (CUDA events) on the inputs of phase 3, beside their plain
+   versions' and the library call's (``F.grid_sample`` for the warp), and
+   the two benchmark entry points that run the other kernels:
+   ``bench.kernels`` (the histogram's path) and ``bench.conv_down`` (the
+   down-conv's, all 11 layers, against ``F.conv2d``).
 
-Then one JSON line of kernel records, the card line, and as the last line
-``{"ok": true, "device": {...}}``. Without CUDA, or without the package
+Each path's launch counts are zeroed just before it runs and read just
+after. Then one JSON line of kernel records, the card line, and as the last
+line ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits nonzero and prints no result.
 """
 
@@ -43,15 +56,13 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12       # non-tensor float32, H100 SXM data sheet
-TRAIN_ITERS, VALID_STEP = 20, 10
+TRAIN_ITERS, VALID_STEP, PIX2PIX_STEPS = 20, 10, 20
+SAVE_DIR = ROOT / "build" / "chip_smoke_run"
 
 
 def fail(msg: str):
@@ -64,69 +75,11 @@ def check(cond, msg: str):
         fail(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean time per call of ``fn`` over ``iters`` back-to-back calls,
-    between two CUDA events: what a caller waits for, host launch overhead
-    included when the calls are too short to queue ahead of the device."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int, kernel: str | None = None):
-    """Device time per call of ``fn``: the summed durations of the device
-    kernels it launches (only those whose name holds ``kernel``, if given)
-    over ``iters`` calls, from torch.profiler. Falls back to ``time_ms``
-    when the trace holds no such kernel. Inputs are warm in L2, as the
-    trainer leaves them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)
-             and (kernel is None or kernel in e.name)]
-    if not spans:
-        print(f"[timing] no device kernel{' ' + kernel if kernel else ''} "
-              "in the profiler trace: CUDA events instead")
-        return time_ms(fn, iters)
-    return sum(spans) / 1e3 / iters
-
-
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
-
-
 def phase_kernels(torch, dev, G, arch):
     import numpy as np
     import torch.nn.functional as F
 
+    from semantic_segmentation_torch.bench.timing import bound_ms
     from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
     from semantic_segmentation_torch.ops import augment, image
 
@@ -225,7 +178,54 @@ def phase_kernels(torch, dev, G, arch):
     timers["equalize_uint8"] = (
         "equalize_kernel", lambda: image.equalize_uint8(x),
         lambda: image.equalize_uint8_ref(x), None)
+
+    # -- histogram -----------------------------------------------------------
+    for fam, planes in families.items():
+        x2 = planes[..., 0].contiguous()                       # (2,256,256)
+        for xs in (x2, torch.cat([x2, x2.flip(1)])):           # and (4,...)
+            k, r = image.histogram256(xs), image.histogram256_ref(xs)
+            counts = np.stack([np.bincount(p.ravel(), minlength=256)
+                               for p in xs.cpu().numpy()])
+            check(torch.equal(k, r) and np.array_equal(k.cpu().numpy(),
+                                                       counts),
+                  f"histogram {fam} {tuple(xs.shape)}: not bit-exact")
+    print(f"[kernels] histogram: bit-exact on {', '.join(families)} at "
+          "(2, 256, 256) and (4, 256, 256)")
+    phase_conv_check(torch, dev)
     return records, timers
+
+
+def phase_conv_check(torch, dev):
+    """The down-conv kernel against its plain version in bf16 at the 9
+    flagship layers it takes and at C_in / C_out off multiples of 8; C_in <
+    8 refused. Tolerance 1e-2 of the plain output's largest magnitude: one
+    bf16 rounding of each output, f32 sums in another order."""
+    import numpy as np
+
+    from semantic_segmentation_torch.bench import conv_down
+    from semantic_segmentation_torch.ops.conv import conv_down4, conv_down4_ref
+    rows, _ = conv_down.run(timing=False)
+    worst = 0.0
+    for r in rows:
+        if r["cin"] >= 8:
+            check(r["kernel_vs_plain_err"] <= 1e-2,
+                  f"conv {r['layer']}: relative error "
+                  f"{r['kernel_vs_plain_err']}")
+            worst = max(worst, r["kernel_vs_plain_err"])
+        else:
+            check("NotImplementedError" in r.get("kernel_error", ""),
+                  f"conv {r['layer']}: C_in {r['cin']} not refused: {r}")
+    rng = np.random.default_rng(5)
+    for cin, cout in ((12, 64), (16, 20), (12, 20)):
+        x, w = conv_down.layer_inputs(32, cin, cout, rng, dev)
+        k, ref = conv_down4(x, w).float(), conv_down4_ref(x, w).float()
+        err = ((k - ref).abs().max() / ref.abs().max()).item()
+        check(k.shape == ref.shape and err <= 1e-2,
+              f"conv C_in {cin} -> {cout}: relative error {err}")
+        worst = max(worst, err)
+    print(f"[kernels] conv_down4: {sum(r['cin'] >= 8 for r in rows)} "
+          f"flagship layers and 3 off-multiple-of-8 shapes within "
+          f"{worst:.3e} of max |plain| (<= 1e-2); C_in 1 and 2 refused")
 
 
 def phase_timing(records, timers):
@@ -233,6 +233,7 @@ def phase_timing(records, timers):
     version's and the library call's device time, at the inputs of the
     kernel phase. Runs after the trainer, so that the profiler cannot slow
     the trainer's measurement."""
+    from semantic_segmentation_torch.bench.timing import device_ms, time_ms
     for name, (symbol, kernel_fn, plain_fn, lib_fn) in timers.items():
         records[name].update({
             "ms": device_ms(kernel_fn, 200, symbol),
@@ -311,19 +312,75 @@ def phase_small_engine(torch, devices=("cpu", "cuda"), iters: int = 3):
           f"{worst:.3e}, arch max |err| {arch_err:.3e}")
 
 
-def phase_trainer(torch, dev):
+def phase_pix2pix(torch):
+    """20 full-width stage-1 steps; returns (stats, checkpoint dir)."""
     from semantic_segmentation_torch import kernels
     from semantic_segmentation_torch.core.config import parse_config
-    from semantic_segmentation_torch.train.train_end2end import train
-    save_dir = ROOT / "build" / "chip_smoke_run"
+    from semantic_segmentation_torch.train import train_pix2pix
+    cfg = parse_config(["--data.synthetic=true", "--run.log_every=5",
+                        f"--run.save_dir={SAVE_DIR}"], preset="pix2pix_jsrt")
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.compute_dtype) == (256, 2, "unet_256", 64, 64, "bfloat16"),
+          "pix2pix: not the full-width pix2pix_jsrt configuration")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model, results = train_pix2pix.train(cfg, train_iters=PIX2PIX_STEPS,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(not any(launches.values()),
+          f"pix2pix: the path runs no kernel, launches {launches}")
+    for r in results["log"]:
+        for k in ("loss_G", "loss_D", "loss_D_fake", "loss_D_real"):
+            check(math.isfinite(r[k]), f"pix2pix: {k} not finite: {r}")
+    ckpt = SAVE_DIR / cfg.run.name
+    for f in (train_pix2pix.GENERATOR_FILE, train_pix2pix.DISCRIMINATOR_FILE):
+        check((ckpt / f).is_file(), f"pix2pix: no checkpoint {ckpt / f}")
+    steady = results["log"][1:]
+    its = sum(r["steps"] for r in steady) / sum(r["seconds"] for r in steady)
+    del model
+    return {"steps": results["steps"], "wall_s": wall,
+            "first_log_s": results["log"][0]["seconds"],
+            "steady_it_per_s": its, "steady_step_ms": 1e3 / its,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "last_losses": {k: results["log"][-1][k] for k in
+                            ("loss_G", "loss_D")},
+            "launches": launches}, ckpt
+
+
+def phase_trainer(torch, ckpt):
+    """The flagship trainer at full width, started from the stage-1
+    checkpoint ``ckpt``."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train.train_end2end import (build_engine,
+                                                                 train)
+    from semantic_segmentation_torch.train.train_pix2pix import GENERATOR_FILE
     cfg = parse_config(["--data.synthetic=true",
                         f"--engine.valid_step={VALID_STEP}",
-                        f"--run.save_dir={save_dir}"], preset="end2end_jsrt")
+                        f"--run.pretrained_pix2pix={ckpt}",
+                        f"--run.save_dir={SAVE_DIR}"], preset="end2end_jsrt")
     m = cfg.model
     check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
            m.base_features, m.compute_dtype) ==
           (256, 2, "unet_256", 64, 64, 64, "bfloat16"),
           "trainer: not the full-width end2end_jsrt configuration")
+    # the engine train() builds starts from the saved G, D and arch tables
+    engine, p2p, seg = build_engine(cfg, "cuda")
+    saved = torch.load(ckpt / GENERATOR_FILE, map_location="cuda",
+                       weights_only=True)
+    check(all(torch.equal(v, saved["G"][k])
+              for k, v in p2p.G.state_dict().items())
+          and all(torch.equal(v, saved["arch"][k])
+                  for k, v in p2p.arch.items()),
+          "trainer: G or the arch tables differ from the checkpoint")
+    del engine, p2p, seg, saved
+    torch.cuda.empty_cache()
+    print(f"[trainer] G and the arch tables start from {ckpt}")
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -333,7 +390,8 @@ def phase_trainer(torch, dev):
     launches = dict(kernels.LAUNCHES)
     unet_steps = TRAIN_ITERS * cfg.engine.unroll_steps
     check(launches == {"warp_affine": unet_steps,
-                       "equalize_uint8": unet_steps},
+                       "equalize_uint8": unet_steps,
+                       "histogram256": 0, "conv_down4": 0},
           f"trainer: launches {launches} != {unet_steps} unet inner steps")
     for c in results["chunks"]:
         for k in ("loss_netG", "loss_netD", "loss_unet", "val_score"):
@@ -355,6 +413,66 @@ def phase_trainer(torch, dev):
     return stats
 
 
+def phase_benches(torch, records):
+    """The two benchmark entry points, each the path of one more kernel:
+    ``bench.kernels`` (the histogram, at (4, 256, 256)) and
+    ``bench.conv_down`` (the down-conv, all 11 layers). Adds the two
+    kernels' records; returns each path's launch counts."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.bench import conv_down
+    from semantic_segmentation_torch.bench import kernels as kernels_bench
+    from semantic_segmentation_torch.bench.timing import bound_ms
+    launches = {}
+
+    kernels.reset_launches()
+    bench = kernels_bench.run()
+    launches["bench_kernels"] = dict(kernels.LAUNCHES)
+    check(launches["bench_kernels"]["histogram256"] > 0,
+          "bench.kernels: the histogram kernel was not launched")
+    print("[bench.kernels] " + json.dumps(bench))
+    h = bench["histogram256"]
+    n_px = math.prod(h["shape"])
+    # each pixel read once, the int32 counts written once; one add per
+    # pixel, integer work counted at the f32 rate
+    b, why = bound_ms(n_px + h["shape"][0] * 256 * 4, n_px)
+    records["histogram256"] = {
+        "name": "histogram256", "route": "cuda",
+        "source": "semantic_segmentation_torch/kernels/csrc/histogram256.cu",
+        "replaces": "semantic_segmentation_tpu/ops/pallas_kernels.py:66",
+        "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+        "wrapper_call_ms": h["wrapper_call_ms"], "plain_ms": h["plain_ms"],
+        "library_ms": None, "bound_ms": b, "bound_us": b * 1e3,
+        "bound_by": why, "shape": h["shape"]}
+
+    kernels.reset_launches()
+    rows, summary = conv_down.run(
+        emit=lambda r: print("[bench.conv_down] " + json.dumps(r)))
+    launches["bench_conv_down"] = dict(kernels.LAUNCHES)
+    check(launches["bench_conv_down"]["conv_down4"] > 0,
+          "bench.conv_down: the conv kernel was not launched")
+    taken = [r for r in rows if "kernel_us" in r]
+    check(len(taken) == 9, f"bench.conv_down: kernel timed at {len(taken)} "
+          "layers, not 9")
+    ops_bound = sum(r["mult"] * r["bound_us"] for r in taken
+                    if r["bound_by"] == "operations")
+    us = summary["kernel_layers_fwd_us"]
+    records["conv_down4"] = {
+        "name": "conv_down4", "route": "cuda",
+        "source": "semantic_segmentation_torch/kernels/csrc/conv_down4.cu",
+        "replaces": "scripts/bench_conv_down.py:209",
+        "max_abs_err": max(r["kernel_vs_plain_abs_err"] for r in taken),
+        "max_rel_err": max(r["kernel_vs_plain_err"] for r in taken),
+        "ms": us["kernel"] / 1e3, "plain_ms": us["plain"] / 1e3,
+        "library_ms": us["cudnn"] / 1e3,
+        "bound_ms": summary["kernel_layers_bound_us"] / 1e3,
+        "bound_by": ("operations" if 2 * ops_bound >=
+                     summary["kernel_layers_bound_us"] else "bytes"),
+        "times_are": "sums over the 9 flagship layers with C_in >= 8 of mult "
+                     "x device time per launch (library: F.conv2d)",
+        "shape": "bench.conv_down.LAYERS, batch 2, bf16"}
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -370,6 +488,7 @@ def main() -> int:
               f"{__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from semantic_segmentation_torch.bench.timing import card_line
 
     # 1. device
     card = card_line()
@@ -407,15 +526,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True     # the trainer's defaults
     torch.cuda.empty_cache()
 
-    # 6. trainer
-    stats = phase_trainer(torch, dev)
+    # 6. stage-1 trainer; 7. the flagship trainer from its checkpoint
+    p2p_stats, ckpt = phase_pix2pix(torch)
+    print(f"[pix2pix] {card}: " + json.dumps(p2p_stats))
+    torch.cuda.empty_cache()
+    stats = phase_trainer(torch, ckpt)
     print(f"[trainer] {card}: " + json.dumps(stats))
 
-    # 7. kernel timing
+    # 8. timing and the benchmark paths
     phase_timing(records, timers)
-
+    paths = {"pix2pix_trainer": p2p_stats["launches"],
+             "end2end_trainer": stats["launches"]}
+    paths.update(phase_benches(torch, records))
+    main_path = {"warp_affine": "end2end_trainer",
+                 "equalize_uint8": "end2end_trainer",
+                 "histogram256": "bench_kernels",
+                 "conv_down4": "bench_conv_down"}
     for k, rec in records.items():
-        rec["launches"] = stats["launches"][k]
+        rec["main_path"] = main_path[k]
+        rec["launches"] = paths[main_path[k]][k]
+        rec["launches_by_path"] = {p: c[k] for p, c in paths.items()}
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -61,6 +61,11 @@ class OptimConfig:
     gan_mode: str = "vanilla"
     lambda_L1: float = 100.0
     loss_lambda: float = 1.0         # weight of fake-image seg loss
+    lr_policy: str = "linear"
+    n_epochs: int = 10000            # pretrain scripts pass --n_epochs 10000
+    epoch_count: int = 1
+    n_epochs_decay: int = 100
+    lr_decay_iters: int = 50
     plateau_patience: int = 5        # ReduceLROnPlateau(max, patience=5)
     plateau_factor: float = 0.1
 
@@ -82,7 +87,10 @@ class RunConfig:
     """Output, seed and device."""
     save_dir: str = "./checkpoints"
     name: str = "end2end-JSRT-9-unet"
+    pretrained_pix2pix: str = ""     # stage-1 G/D checkpoint dir ('' = fresh)
     seed: int = 0
+    log_every: int = 10
+    save_every: int = 0              # pix2pix: save G/D every N epochs
     device: str = "cuda"             # entry points run here; 'cpu' on request
 
 
@@ -101,6 +109,10 @@ PRESETS: dict[str, dict[str, Any]] = {
     # scripts/train_end2end_jsrt.sh; decay_only skips the darts term that is
     # structurally zero under this wiring (engine/bilevel.py docstring).
     "end2end_jsrt": {"engine.hypergrad": "decay_only"},
+    # scripts/train_pix2pix_lung.sh (200 epochs x 80 imgs, lr 2e-5)
+    "pix2pix_jsrt": {"optim.lr": 2e-5, "engine.train_iters": 8000,
+                     "data.n_train": 80, "data.n_val": 20, "data.n_test": 0,
+                     "run.name": "pix2pix-JSRT"},
 }
 
 

@@ -34,6 +34,20 @@ def _check_nonempty_epoch(n: int, batch_size: int, drop_last: bool):
             "drop_last=False")
 
 
+def batch_iterator(data: Mapping[str, np.ndarray], batch_size: int,
+                   rng: np.random.Generator):
+    """One epoch of whole numpy batches (dicts of stacked arrays), the order
+    shuffled in place by ``rng`` as the JAX package's ``batch_iterator``
+    does with its defaults (shuffle, drop_last)."""
+    n = len(next(iter(data.values())))
+    _check_nonempty_epoch(n, batch_size, True)
+    order = np.arange(n)
+    rng.shuffle(order)
+    for i in range(0, n - n % batch_size, batch_size):
+        sel = order[i:i + batch_size]
+        yield {k: v[sel] for k, v in data.items()}
+
+
 def eval_batches(data: Mapping[str, np.ndarray], batch_size: int):
     """Sequential eval batches, the last one possibly short."""
     n = len(next(iter(data.values())))

@@ -3,12 +3,13 @@
 Each kernel lives in ``csrc/<name>.cu`` behind a plain C entry point, is
 built by ``build.py`` with ``nvcc`` into its own shared library at first use,
 and is called through ``ctypes`` by its wrapper in the module that owns the
-function (``ops/augment.py``, ``ops/image.py``). A wrapper adds one to
-``LAUNCHES[name]`` where it launches its kernel and nowhere else, so a run
-can show that the main path went through the kernels.
+function (``ops/augment.py``, ``ops/image.py``, ``ops/conv.py``). A wrapper
+adds one to ``LAUNCHES[name]`` where it launches its kernel and nowhere else,
+so a run can show that the main path went through the kernels.
 """
 
-LAUNCHES = {"warp_affine": 0, "equalize_uint8": 0}
+LAUNCHES = {"warp_affine": 0, "equalize_uint8": 0, "histogram256": 0,
+            "conv_down4": 0}
 
 
 def reset_launches():

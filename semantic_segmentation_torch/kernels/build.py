@@ -34,6 +34,10 @@ SIGNATURES = {
                     [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     # equalize_uint8(in, out, n, hw, c, stream)
     "equalize_uint8": ("equalize_uint8", [_P, _P, _I, _I, _I, _P]),
+    # histogram256(in, out, n, hw, stream)
+    "histogram256": ("histogram256", [_P, _P, _I, _I, _P]),
+    # conv_down4_bf16(x, w, y, b, h, w, c, cout, stream)
+    "conv_down4": ("conv_down4_bf16", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _loaded: dict = {}                 # name -> its loaded ctypes function
@@ -110,7 +114,17 @@ def kernel(name: str):
     return _loaded[name]
 
 
-def check_launch(name: str, err: int):
+def launch(name: str, device, *args):
+    """Launch ``csrc/<name>.cu``'s entry point with ``args`` on ``device``'s
+    current stream (appended as the last argument), raise if the launch was
+    refused, and count it in ``kernels.LAUNCHES[name]``."""
+    import torch
+
+    from semantic_segmentation_torch import kernels
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = kernel(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+    kernels.LAUNCHES[name] += 1

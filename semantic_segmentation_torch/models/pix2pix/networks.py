@@ -58,34 +58,36 @@ class UnetGenerator(nn.Module):
         """``dropout_masks``: {depth: bool keep-mask shaped like that
         depth's up-block output} replaces the draw from ``generator`` (train
         mode only)."""
+        return self._block(x, 0, arch_upconv, dropout_masks, generator)
+
+    def _block(self, h, d, arch_upconv, dropout_masks, generator):
+        """The skip block at depth ``d`` and, inside it, those below. A
+        method, not a closure that calls itself: such a closure is a
+        reference cycle that keeps the module alive until the cyclic
+        garbage collector runs."""
         nd = self.num_downs
-        drop = self.training and self.use_dropout
-
-        def block(h, d):
-            skip = h
-            if d > 0:
-                h = F.leaky_relu(h, 0.2)
-            h = getattr(self, f"down{d}")(h)
-            if 0 < d < nd - 1:
-                h = getattr(self, f"down_bn{d}")(h)
-            if d < nd - 1:
-                h = block(h, d + 1)
-            h = F.relu(h)
-            weights = arch_softmax(arch_upconv[nd - 1 - d])
-            h = getattr(self, f"up{d}")(h, weights)
-            if d == 0:
-                return torch.tanh(h.float())
-            h = getattr(self, f"up_bn{d}")(h)
-            if drop and d in dropout_depths(nd):
-                if dropout_masks is not None:
-                    keep = dropout_masks[d]
-                else:
-                    keep = torch.rand(h.shape, generator=generator,
-                                      device=h.device) < 0.5
-                h = torch.where(keep, h * 2.0, torch.zeros_like(h))
-            return torch.cat([skip, h.to(skip.dtype)], dim=1)
-
-        return block(x, 0)
+        skip = h
+        if d > 0:
+            h = F.leaky_relu(h, 0.2)
+        h = getattr(self, f"down{d}")(h)
+        if 0 < d < nd - 1:
+            h = getattr(self, f"down_bn{d}")(h)
+        if d < nd - 1:
+            h = self._block(h, d + 1, arch_upconv, dropout_masks, generator)
+        h = F.relu(h)
+        weights = arch_softmax(arch_upconv[nd - 1 - d])
+        h = getattr(self, f"up{d}")(h, weights)
+        if d == 0:
+            return torch.tanh(h.float())
+        h = getattr(self, f"up_bn{d}")(h)
+        if self.training and self.use_dropout and d in dropout_depths(nd):
+            if dropout_masks is not None:
+                keep = dropout_masks[d]
+            else:
+                keep = torch.rand(h.shape, generator=generator,
+                                  device=h.device) < 0.5
+            h = torch.where(keep, h * 2.0, torch.zeros_like(h))
+        return torch.cat([skip, h.to(skip.dtype)], dim=1)
 
 
 class NLayerDiscriminator(nn.Module):

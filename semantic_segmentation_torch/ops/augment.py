@@ -22,8 +22,7 @@ import math
 
 import torch
 
-from semantic_segmentation_torch import kernels
-from semantic_segmentation_torch.kernels.build import check_launch, kernel
+from semantic_segmentation_torch.kernels.build import launch
 
 
 def _about_center(mat, h: float, w: float):
@@ -153,13 +152,8 @@ def warp_affine_batch(imgs_nhwc, mats, cval: float = 0.0):
     x = imgs_nhwc.contiguous()
     coef = _inverse(mats)[:, :2, :].reshape(n, 6).contiguous()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = kernel("warp_affine")(x.data_ptr(), coef.data_ptr(),
-                                    out.data_ptr(), n, h, w, c, float(cval),
-                                    stream)
-    check_launch("warp_affine", err)
-    kernels.LAUNCHES["warp_affine"] += 1
+    launch("warp_affine", x.device, x.data_ptr(), coef.data_ptr(),
+           out.data_ptr(), n, h, w, c, float(cval))
     return out
 
 

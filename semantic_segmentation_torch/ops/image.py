@@ -7,9 +7,10 @@ uint8 -> histogram equalize -> gamma(0.5) -> /255, in integer arithmetic
 that bit-matches PIL's ``ImageOps.equalize`` and torchvision's
 ``adjust_gamma``. Public functions keep the JAX package's NHWC contract.
 
-``equalize_uint8`` is the wrapper of the CUDA kernel
-``kernels/csrc/equalize_uint8.cu``: a CUDA tensor launches the kernel, a CPU
-tensor runs ``equalize_uint8_ref``, the plain PyTorch version beside it.
+``equalize_uint8`` and ``histogram256`` are the wrappers of the CUDA kernels
+``kernels/csrc/equalize_uint8.cu`` and ``kernels/csrc/histogram256.cu``: a
+CUDA tensor launches the kernel, a CPU tensor runs the plain PyTorch version
+beside it (``*_ref``).
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ import functools
 
 import torch
 
-from semantic_segmentation_torch import kernels
-from semantic_segmentation_torch.kernels.build import check_launch, kernel
+from semantic_segmentation_torch.kernels.build import launch
 
 
 def minmax_normalize(x):
@@ -78,12 +78,41 @@ def equalize_uint8(img_u8):
     x = img_u8.contiguous()
     n, h, w, c = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = kernel("equalize_uint8")(x.data_ptr(), out.data_ptr(), n, h * w,
-                                       c, stream)
-    check_launch("equalize_uint8", err)
-    kernels.LAUNCHES["equalize_uint8"] += 1
+    launch("equalize_uint8", x.device, x.data_ptr(), out.data_ptr(), n, h * w,
+           c)
+    return out
+
+
+def histogram256_ref(imgs_u8):
+    """Plain PyTorch version of the histogram kernel: (N, H, W) uint8 ->
+    (N, 256) int32, one ``bincount`` over the pixels offset by 256 per
+    image."""
+    n = imgs_u8.shape[0]
+    offs = 256 * torch.arange(n, device=imgs_u8.device)[:, None]
+    flat = imgs_u8.reshape(n, -1).long() + offs
+    return torch.bincount(flat.reshape(-1), minlength=256 * n).reshape(
+        n, 256).to(torch.int32)
+
+
+def histogram256(imgs_u8):
+    """Per-image 256-bin histograms, the port of ``histogram256``/
+    ``histogram256_pallas`` (``semantic_segmentation_tpu/ops/
+    pallas_kernels.py:61-76, 260-274``): (N, H, W) uint8 -> (N, 256) int32.
+    A CUDA tensor goes through ``kernels/csrc/histogram256.cu``; a CPU tensor
+    through ``histogram256_ref``."""
+    if imgs_u8.dtype != torch.uint8 or imgs_u8.dim() != 3:
+        raise ValueError(f"histogram256 takes (N, H, W) uint8, got "
+                         f"{imgs_u8.dtype} {tuple(imgs_u8.shape)}")
+    if imgs_u8.device.type == "cpu":
+        return histogram256_ref(imgs_u8)
+    if imgs_u8.device.type != "cuda":
+        raise ValueError(f"histogram256: unsupported device {imgs_u8.device}")
+    x = imgs_u8.contiguous()
+    n, h, w = x.shape
+    if n > 65535:
+        raise ValueError(f"histogram256: at most 65535 images, got {n}")
+    out = torch.zeros(n, 256, dtype=torch.int32, device=x.device)
+    launch("histogram256", x.device, x.data_ptr(), out.data_ptr(), n, h * w)
     return out
 
 

@@ -1,7 +1,12 @@
 """Shared entry-point plumbing: dataset assembly and split policy (the port
-of ``semantic_segmentation_tpu/train/common.load_splits``, synthetic branch)."""
+of ``semantic_segmentation_tpu/train/common.load_splits``, synthetic branch),
+and the autocast context of ``model.compute_dtype``."""
 
 from __future__ import annotations
+
+import contextlib
+
+import torch
 
 from semantic_segmentation_torch.core.config import Config
 from semantic_segmentation_torch.data.pipeline import (stack_dataset,
@@ -28,3 +33,13 @@ def load_splits(cfg: Config):
         "val": stack_dataset(ds, va),
         "test": stack_dataset(ds, te) if te else None,
     }
+
+
+def autocast_for(cfg: Config, device: torch.device):
+    """``model.compute_dtype=bfloat16`` -> torch.autocast in bf16 (params
+    and BN statistics stay float32, as in the JAX package)."""
+    if cfg.model.compute_dtype == "bfloat16":
+        return lambda: torch.autocast(device.type, dtype=torch.bfloat16)
+    if cfg.model.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype {cfg.model.compute_dtype!r}")
+    return contextlib.nullcontext

@@ -26,7 +26,6 @@ Usage: ``python -m semantic_segmentation_torch.train.train_end2end
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import logging
 import os
@@ -47,9 +46,10 @@ from semantic_segmentation_torch.models.pix2pix.model import Pix2Pix
 from semantic_segmentation_torch.models.seg import SegProblem, seg_loss_fn
 from semantic_segmentation_torch.ops import image as iops
 from semantic_segmentation_torch.ops.augment import random_augment_batch
-from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 from semantic_segmentation_torch.ops.metrics import eval_batch_score
-from semantic_segmentation_torch.train.common import load_splits
+from semantic_segmentation_torch.train.common import autocast_for, load_splits
+from semantic_segmentation_torch.train.train_pix2pix import (build_pix2pix,
+                                                             load_model)
 
 log = logging.getLogger(__name__)
 
@@ -64,22 +64,11 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def autocast_for(cfg: Config, device: torch.device):
-    """``model.compute_dtype=bfloat16`` -> torch.autocast in bf16 (params
-    and BN statistics stay float32, as in the JAX package)."""
-    if cfg.model.compute_dtype == "bfloat16":
-        return lambda: torch.autocast(device.type, dtype=torch.bfloat16)
-    if cfg.model.compute_dtype != "float32":
-        raise ValueError(f"compute_dtype {cfg.model.compute_dtype!r}")
-    return contextlib.nullcontext
-
-
 def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
                    generator: torch.Generator):
     """The three inner GenSeg problems as engine closures. ``generator``
     draws the augment affines and dropout masks not injected via ``draws``
     ({'affine': (B, 3, 3)}, {'dropout': {depth: keep-mask}})."""
-    gan_mode, lambda_L1 = cfg.optim.gan_mode, cfg.optim.lambda_L1
     loss_lambda = cfg.optim.loss_lambda
     detach = cfg.engine.detach_fakes
     if cfg.engine.fake_postprocess != "uint8_chain":
@@ -95,22 +84,14 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
     def loss_netG(batch, draws):
         mask = _nchw(batch["mask_pix2pix"].float())
         image = _nchw(batch["image_pix2pix"].float())
-        with amp():
-            fake = g_forward(mask, draws)
-            pred_fake = p2p.d_apply(torch.cat([mask, fake], 1), True)
-        return gan_loss(pred_fake, True, gan_mode) + \
-            lambda_L1 * l1_loss(fake, image)
+        return p2p.loss_G(mask, image, draws.get("dropout"), generator)[0]
 
     def loss_netD(batch, draws):
         mask = _nchw(batch["mask_pix2pix"].float())
         image = _nchw(batch["image_pix2pix"].float())
-        with amp():
-            with torch.no_grad():
-                fake = g_forward(mask, draws)
-            pred_fake = p2p.d_apply(torch.cat([mask, fake], 1), True)
-            pred_real = p2p.d_apply(torch.cat([mask, image], 1), True)
-        return 0.5 * (gan_loss(pred_fake, False, gan_mode) +
-                      gan_loss(pred_real, True, gan_mode))
+        with amp(), torch.no_grad():
+            fake = g_forward(mask, draws)
+        return p2p.loss_D(mask, image, fake)[0]
 
     def loss_unet(batch, draws):
         images = _nchw(batch["image"].float())
@@ -132,26 +113,27 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
                                     seg.n_classes, seg.loss_type)
         return loss + loss_lambda * fake_loss
 
-    opt_g, opt_d, opt_u = p2p.make_opt_g(), p2p.make_opt_d(), seg.make_opt()
     return [
-        InnerProblem("netG", loss_netG, list(p2p.G.parameters()), opt_g),
-        InnerProblem("netD", loss_netD, list(p2p.D.parameters()), opt_d),
-        InnerProblem("unet", loss_unet, list(seg.net.parameters()), opt_u),
+        InnerProblem("netG", loss_netG, list(p2p.G.parameters()), p2p.opt_g),
+        InnerProblem("netD", loss_netD, list(p2p.D.parameters()), p2p.opt_d),
+        InnerProblem("unet", loss_unet, list(seg.net.parameters()),
+                     seg.make_opt()),
     ]
 
 
 def build_engine(cfg: Config, device, seed: int | None = None):
     """Models (weights drawn from a CPU generator seeded with ``seed``, then
-    moved to ``device``), problems and engine. Returns (engine, p2p, seg)."""
+    moved to ``device``), problems and engine. Returns (engine, p2p, seg).
+    With ``run.pretrained_pix2pix`` G, D and the arch tables are loaded from
+    that directory (``train_pix2pix.save_model``'s files) before any
+    optimizer is made."""
     device = torch.device(device)
     seed = cfg.run.seed if seed is None else seed
     init_gen = torch.Generator().manual_seed(seed)
     m = cfg.model
-    if m.norm != "batch":
-        raise NotImplementedError(f"norm={m.norm!r} is not ported yet")
-    p2p = Pix2Pix(m.input_nc, m.output_nc, m.ngf, m.ndf, m.netG, m.netD,
-                  use_dropout=not m.no_dropout, lr=cfg.optim.lr,
-                  beta1=cfg.optim.beta1, device=device, generator=init_gen)
+    p2p = build_pix2pix(cfg, device, init_gen)
+    if cfg.run.pretrained_pix2pix:
+        load_model(p2p, cfg.run.pretrained_pix2pix)
     seg = SegProblem(m.seg_model, m.output_nc, m.classes,
                      lr=cfg.optim.unet_lr,
                      loss_type="jaccard" if cfg.data.dataset.startswith("isic")

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-and at the trainer's shapes: the warp within 1e-4 with identical > 0.1 masks
-(identity and flip exact), the equalize bit for bit. Each kernel call counts
-one launch. Marked ``cuda``: without a card these skip. On a machine with one
+and at the trainer's and the benchmarks' shapes: the warp within 1e-4 with
+identical > 0.1 masks (identity and flip exact), the equalize and the
+histogram bit for bit, the down-conv within 1e-2 of the plain version's
+largest magnitude (one bf16 rounding of each output; f32 sums in another
+order) at the flagship's layers and at shapes that take each load path of
+the kernel. Each kernel call counts one launch. Marked ``cuda``: without a card these skip. On a machine with one
 (no JAX needed there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -11,8 +14,10 @@ import pytest
 import torch
 
 from semantic_segmentation_torch import kernels
+from semantic_segmentation_torch.bench.conv_down import LAYERS, layer_inputs
 from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
 from semantic_segmentation_torch.ops import augment, image
+from semantic_segmentation_torch.ops.conv import conv_down4, conv_down4_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +90,64 @@ def test_equalize_kernel_bit_exact(dev, family):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["equalize_uint8"] == before + 1
     assert torch.equal(out, image.equalize_uint8_ref(x))
+
+
+@pytest.mark.parametrize("family", ["random", "constant", "two_value",
+                                    "generator_like"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_histogram_kernel_bit_exact(dev, family, n):
+    x = _planes(family, dev)[..., 0].repeat(2, 1, 1)[:n].contiguous()
+    before = kernels.LAUNCHES["histogram256"]
+    out = image.histogram256(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["histogram256"] == before + 1
+    assert torch.equal(out, image.histogram256_ref(x))
+    ref = np.stack([np.bincount(p.ravel(), minlength=256)
+                    for p in x.cpu().numpy()])
+    np.testing.assert_array_equal(out.cpu().numpy(), ref)
+
+
+def test_histogram_kernel_odd_size(dev):
+    x = _planes("random_3ch", dev)[..., 0][:, :63, :45].contiguous()
+    assert torch.equal(image.histogram256(x), image.histogram256_ref(x))
+
+
+def _conv_close(x, w):
+    before = kernels.LAUNCHES["conv_down4"]
+    out = conv_down4(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_down4"] == before + 1
+    ref = conv_down4_ref(x, w)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= 1e-2, err.item()
+
+
+@pytest.mark.parametrize("layer", [r for r in LAYERS if r[2] >= 8],
+                         ids=lambda r: r[0])
+def test_conv_kernel_matches_plain_at_flagship_layers(dev, layer):
+    tag, hw, cin, cout, _ = layer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = layer_inputs(hw, cin, cout, np.random.default_rng(0), dev)
+    _conv_close(x, w)
+
+
+# C_in and C_out off multiples of 8 take the element loads of the kernel
+@pytest.mark.parametrize("cin,cout", [(12, 64), (16, 20), (12, 20)])
+def test_conv_kernel_matches_plain_off_multiples_of_8(dev, cin, cout):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w = layer_inputs(32, cin, cout, np.random.default_rng(1), dev)
+    _conv_close(x, w)
+
+
+@pytest.mark.parametrize("cin", [1, 2])
+def test_conv_kernel_refuses_small_c_in(dev, cin):
+    x, w = layer_inputs(16, cin, 8, np.random.default_rng(2), dev)
+    with pytest.raises(NotImplementedError):
+        conv_down4(x, w)
+
+
+def test_conv_kernel_refuses_float32(dev):
+    x, w = layer_inputs(16, 8, 8, np.random.default_rng(3), dev)
+    with pytest.raises(TypeError):
+        conv_down4(x.float(), w.float())

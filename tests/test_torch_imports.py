@@ -17,6 +17,7 @@ def _sources():
     files = sorted((ROOT / "semantic_segmentation_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "profile_torch_end2end.py",
+                    ROOT / "scripts" / "ab_torch_trainer.py",
                     ROOT / "tests" / "test_torch_cuda_kernels.py"]
 
 

@@ -31,7 +31,8 @@ def test_train_end_to_end_on_cpu(tmp_path):
     assert 0.0 <= results["best_val"] <= 1.0
     assert 0.0 <= results["test_dice"] <= 1.0
     # CPU tensors take the plain versions: no kernel launched
-    assert kernels.LAUNCHES == {"warp_affine": 0, "equalize_uint8": 0}
+    assert kernels.LAUNCHES == {"warp_affine": 0, "equalize_uint8": 0,
+                                "histogram256": 0, "conv_down4": 0}
     best = torch.load(os.path.join(tmp_path, cfg.run.name, "unet_best.pt"))
     assert "outc.weight" in best
 
