@@ -10,7 +10,7 @@ Phases, each of which stops the script with a nonzero exit on failure:
    compiled with nvcc (one process each, in parallel) into build/kernels/;
 3. kernels against their plain PyTorch versions on the card, TF32 off:
    - warp: (2, 256, 256, 1) binary masks under ``sample_affine_batch``
-     draws and (2, 256, 256, 3) random floats, max |err| < 1e-4 and an
+     draws and (2, 256, 256, 3) random floats, max |err| 0 and an
      identical > 0.1 mask; identity and flip matrices exact;
    - equalize: bit-exact on random uint8 (2, 256, 256, 1), a constant
      plane, a two-value plane, and the uint8 image of a full-width unet_256
@@ -18,9 +18,11 @@ Phases, each of which stops the script with a nonzero exit on failure:
    - histogram: bit-exact against its plain version and ``np.bincount`` on
      the same four families at (2, 256, 256) and (4, 256, 256);
    - down-conv: bf16, within 1e-2 of the plain version's largest magnitude
-     at the 9 flagship layers with C_in >= 8 (``bench.conv_down.LAYERS``)
-     and at C_in / C_out off multiples of 8 (12 -> 64, 16 -> 20, 12 -> 20);
-     C_in = 1 and 2 raise ``NotImplementedError``;
+     at the 9 flagship layers with C_in >= 8 (``bench.conv_down.LAYERS``;
+     G_d5's last split-K range is shorter than the others), at M = 2, 8,
+     32 and 130, and at C_in / C_out off multiples of 8 (12 -> 64,
+     16 -> 20, 12 -> 20); two calls bit-identical at G_d5 and G_d8 (split-K,
+     swap-AB); C_in = 1 and 2 raise ``NotImplementedError``;
 4. the fake branch in context: warp -> threshold -> G -> min-max -> uint8 ->
    equalize -> gamma through the kernels and through the plain versions
    gives identical images;
@@ -44,7 +46,8 @@ Phases, each of which stops the script with a nonzero exit on failure:
    versions' and the library call's (``F.grid_sample`` for the warp), and
    the two benchmark entry points that run the other kernels:
    ``bench.kernels`` (the histogram's path) and ``bench.conv_down`` (the
-   down-conv's, all 11 layers, against ``F.conv2d``).
+   down-conv's, all 11 layers, against ``F.conv2d``, warm and with L2
+   flushed).
 
 Each path's launch counts are zeroed just before it runs and read just
 after. Then one JSON line of kernel records, the card line, and as the last
@@ -94,13 +97,13 @@ def phase_kernels(torch, dev, G, arch):
     out_k = augment.warp_affine_batch(masks, mats)
     out_r = augment.warp_affine_batch_ref(masks, mats)
     err_mask = (out_k - out_r).abs().max().item()
-    check(err_mask < 1e-4, f"warp masks: max |err| {err_mask}")
+    check(err_mask == 0.0, f"warp masks: max |err| {err_mask}")
     check(torch.equal(out_k > 0.1, out_r > 0.1), "warp masks: > 0.1 differs")
     rgb = torch.rand(2, 256, 256, 3, generator=gen, device=dev)
     mats3 = augment.sample_affine_batch(2, 256, 256, gen)
     err_rgb = (augment.warp_affine_batch(rgb, mats3)
                - augment.warp_affine_batch_ref(rgb, mats3)).abs().max().item()
-    check(err_rgb < 1e-4, f"warp rgb: max |err| {err_rgb}")
+    check(err_rgb == 0.0, f"warp rgb: max |err| {err_rgb}")
     eye = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
     check(torch.equal(augment.warp_affine_batch(rgb, eye), rgb),
           "warp: identity not exact")
@@ -195,15 +198,25 @@ def phase_kernels(torch, dev, G, arch):
     return records, timers
 
 
+# (B, H, W, C_in, C_out) at M = 2, 8, 32 (swap-AB) and 130, as in
+# tests/test_torch_cuda_kernels.py
+CONV_SMALL_M = [(1, 2, 4, 64, 40), (2, 4, 4, 256, 64), (2, 8, 8, 128, 136),
+                (2, 10, 26, 64, 64)]
+
+
 def phase_conv_check(torch, dev):
     """The down-conv kernel against its plain version in bf16 at the 9
-    flagship layers it takes and at C_in / C_out off multiples of 8; C_in <
-    8 refused. Tolerance 1e-2 of the plain output's largest magnitude: one
-    bf16 rounding of each output, f32 sums in another order."""
+    flagship layers it takes, at small M and at C_in / C_out off multiples
+    of 8; two calls bit-identical; C_in < 8 refused. Tolerance 1e-2 of the
+    plain output's largest magnitude: one bf16 rounding of each output, f32
+    sums in another order."""
     import numpy as np
 
     from semantic_segmentation_torch.bench import conv_down
-    from semantic_segmentation_torch.ops.conv import conv_down4, conv_down4_ref
+    from semantic_segmentation_torch.ops.conv import (conv_down4,
+                                                      conv_down4_k_ranges,
+                                                      conv_down4_plan,
+                                                      conv_down4_ref)
     rows, _ = conv_down.run(timing=False)
     worst = 0.0
     for r in rows:
@@ -215,17 +228,32 @@ def phase_conv_check(torch, dev):
         else:
             check("NotImplementedError" in r.get("kernel_error", ""),
                   f"conv {r['layer']}: C_in {r['cin']} not refused: {r}")
+    plan = conv_down4_plan(2, 16, 16, 512, 512)               # G_d5
+    a, b = conv_down4_k_ranges(plan)[-1]
+    check(plan.split > 1 and b - a < plan.k_per_split,
+          f"conv: G_d5's last K range is not ragged: {plan}")
     rng = np.random.default_rng(5)
-    for cin, cout in ((12, 64), (16, 20), (12, 20)):
-        x, w = conv_down.layer_inputs(32, cin, cout, rng, dev)
-        k, ref = conv_down4(x, w).float(), conv_down4_ref(x, w).float()
+    shapes = CONV_SMALL_M + [(2, 32, 32, cin, cout) for cin, cout in
+                             ((12, 64), (16, 20), (12, 20))]
+    for bsz, h, w, cin, cout in shapes:
+        x = torch.from_numpy(rng.standard_normal((bsz, h, w, cin))).to(
+            dev, torch.bfloat16)
+        wt = torch.from_numpy(0.05 * rng.standard_normal(
+            (4, 4, cin, cout))).to(dev, torch.bfloat16)
+        k, ref = conv_down4(x, wt).float(), conv_down4_ref(x, wt).float()
         err = ((k - ref).abs().max() / ref.abs().max()).item()
         check(k.shape == ref.shape and err <= 1e-2,
-              f"conv C_in {cin} -> {cout}: relative error {err}")
+              f"conv {(bsz, h, w, cin, cout)}: relative error {err}")
         worst = max(worst, err)
+    for hw in (16, 2):                                        # G_d5, G_d8
+        x, wt = conv_down.layer_inputs(hw, 512, 512, rng, dev)
+        first = conv_down4(x, wt)
+        check(all(torch.equal(conv_down4(x, wt), first) for _ in range(3)),
+              f"conv {hw}^2 x 512: two calls differ")
     print(f"[kernels] conv_down4: {sum(r['cin'] >= 8 for r in rows)} "
-          f"flagship layers and 3 off-multiple-of-8 shapes within "
-          f"{worst:.3e} of max |plain| (<= 1e-2); C_in 1 and 2 refused")
+          f"flagship layers, M = 2, 8, 32, 130 and 3 off-multiple-of-8 "
+          f"shapes within {worst:.3e} of max |plain| (<= 1e-2); repeated "
+          f"calls bit-identical; C_in 1 and 2 refused")
 
 
 def phase_timing(records, timers):
@@ -456,6 +484,7 @@ def phase_benches(torch, records):
     ops_bound = sum(r["mult"] * r["bound_us"] for r in taken
                     if r["bound_by"] == "operations")
     us = summary["kernel_layers_fwd_us"]
+    cold = summary["kernel_layers_fwd_cold_us"]
     records["conv_down4"] = {
         "name": "conv_down4", "route": "cuda",
         "source": "semantic_segmentation_torch/kernels/csrc/conv_down4.cu",
@@ -467,8 +496,13 @@ def phase_benches(torch, records):
         "bound_ms": summary["kernel_layers_bound_us"] / 1e3,
         "bound_by": ("operations" if 2 * ops_bound >=
                      summary["kernel_layers_bound_us"] else "bytes"),
+        "cold_ms": cold["kernel"] / 1e3,
+        "library_cold_ms": cold["cudnn"] / 1e3,
         "times_are": "sums over the 9 flagship layers with C_in >= 8 of mult "
-                     "x device time per launch (library: F.conv2d)",
+                     "x device time per launch (library: F.conv2d); ms and "
+                     "library_ms warm in L2, the cold_ms pair with L2 "
+                     "flushed before each launch",
+        "paths": {r["layer"]: r["plan"]["path"] for r in taken},
         "shape": "bench.conv_down.LAYERS, batch 2, bf16"}
     return launches
 

@@ -10,12 +10,18 @@ port of ``scripts/bench_conv_down.py``:
 
 Batch 2, seeded numpy inputs (x ~ N(0, 1), w ~ 0.05 N(0, 1), cast to bf16).
 Per form: the error against ``cudnn`` (max |out - ref| / max |ref|) and the
-forward device time (torch.profiler, inputs warm in L2); forward+backward
-for ``cudnn`` only, as the JAX script does for ``xla``; the kernel's error
-against ``plain`` too. The bound per layer is max(bytes / 3.35 TB/s, FLOPs /
-989 TFLOP/s), bytes = 2 (input + weight + output elements), FLOPs = 2 B Ho
-Wo 16 C_in C_out. One JSON line per layer, then a summary line with sums
-weighted by ``mult``, the layer's uses per engine iteration.
+forward device time (torch.profiler, inputs warm in L2); for ``kernel`` and
+``cudnn`` also the cold time (``_cold_us``: L2 flushed by a 96 MiB pass
+before each launch, the flush left out of the sum), since at G_d5..G_d8 the
+8.4 MB weight fits in the 50 MB L2 and a warm time can fall under the HBM
+bytes bound; forward+backward for ``cudnn`` only, as the JAX script does
+for ``xla``; the kernel's error against ``plain`` and its plan (path, tile,
+split, swap-AB: ``ops/conv.conv_down4_plan``). The bound per layer is
+max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s), bytes = 2 (input + weight +
+output elements), FLOPs = 2 B Ho Wo 16 C_in C_out; ``bound_share`` is the
+bound over the kernel's warm time (``bound_share_cold``: over its cold
+time). One JSON line per layer, then a summary line with sums weighted by
+``mult``, the layer's uses per engine iteration, warm and cold.
 
     python -m semantic_segmentation_torch.bench.conv_down [--fast]
 
@@ -34,7 +40,8 @@ import torch.nn.functional as F
 from semantic_segmentation_torch.bench.timing import (H100_BF16_OPS_PER_S,
                                                       bound_ms, card_line,
                                                       device_ms)
-from semantic_segmentation_torch.ops.conv import conv_down4, conv_down4_ref
+from semantic_segmentation_torch.ops.conv import (conv_down4, conv_down4_plan,
+                                                  conv_down4_ref)
 
 BATCH = 2
 # (tag, H = W, C_in, C_out, mult): every k4-s2-p1 conv of the flagship's
@@ -53,6 +60,7 @@ LAYERS = [
     ("D_c2", 64, 128, 256, 2.0),
 ]
 FORMS = ("cudnn", "kernel", "plain")
+COLD_FORMS = ("cudnn", "kernel")
 ITERS = 30                      # timed calls per form and layer
 
 
@@ -86,6 +94,11 @@ def measure_layer(tag, hw, cin, cout, mult, rng, timing=True):
     b, why = layer_bound(hw, cin, cout)
     row = {"layer": tag, "hw": hw, "cin": cin, "cout": cout, "mult": mult,
            "bound_us": b * 1e3, "bound_by": why}
+    if cin >= 8:
+        plan = conv_down4_plan(BATCH, hw, hw, cin, cout)
+        row["plan"] = {k: getattr(plan, k) for k in (
+            "path", "rows", "swap", "x_tma", "split", "k_per_split",
+            "ctas")}
     x, w = layer_inputs(hw, cin, cout, rng, "cuda")
     x_nchw = x.permute(0, 3, 1, 2)                 # channels_last strides
     w_oihw = w.permute(3, 2, 0, 1).contiguous(
@@ -113,8 +126,14 @@ def measure_layer(tag, hw, cin, cout, mult, rng, timing=True):
     if not timing:
         return row
     for name in outs:
-        row[f"{name}_us"] = 1e3 * device_ms(
-            forms[name], ITERS, "conv_down4" if name == "kernel" else None)
+        symbol = "conv_down4" if name == "kernel" else None
+        row[f"{name}_us"] = 1e3 * device_ms(forms[name], ITERS, symbol)
+        if name in COLD_FORMS:
+            row[f"{name}_cold_us"] = 1e3 * device_ms(forms[name], ITERS,
+                                                     symbol, cold=True)
+    if "kernel" in outs:
+        row["bound_share"] = row["bound_us"] / row["kernel_us"]
+        row["bound_share_cold"] = row["bound_us"] / row["kernel_cold_us"]
     xg = x_nchw.detach().requires_grad_(True)
     wg = w_oihw.detach().requires_grad_(True)
     gy = torch.randn(ref.permute(0, 3, 1, 2).shape, device="cuda",
@@ -129,20 +148,26 @@ def measure_layer(tag, hw, cin, cout, mult, rng, timing=True):
 
 
 def summarize(rows) -> dict:
-    """Sums weighted by ``mult``: over all layers (a form that does not take
-    a layer counts cuDNN's time there, as the JAX script counts XLA's), and
-    over the layers the kernel takes (C_in >= 8)."""
-    def total(key, rows_):
-        return sum(r["mult"] * r.get(key, r.get("cudnn_us", 0.0))
+    """Sums weighted by ``mult``, warm and cold: over all layers (a form
+    that does not take a layer counts cuDNN's time there, as the JAX script
+    counts XLA's), and over the layers the kernel takes (C_in >= 8)."""
+    def total(key, rows_, stand_in="cudnn_us"):
+        return sum(r["mult"] * r.get(key, r.get(stand_in, 0.0))
                    for r in rows_)
+
+    def cold(rows_):
+        return {f: total(f"{f}_cold_us", rows_, "cudnn_cold_us")
+                for f in COLD_FORMS}
     taken = [r for r in rows if "kernel_err" in r]
     return {
         "summary": "conv_down",
         "weighted_fwd_us": {f: total(f"{f}_us", rows) for f in FORMS},
+        "weighted_fwd_cold_us": cold(rows),
         "weighted_fwdbwd_us": {"cudnn": total("cudnn_fwdbwd_us", rows)},
         "weighted_bound_us": total("bound_us", rows),
         "kernel_layers": [r["layer"] for r in taken],
         "kernel_layers_fwd_us": {f: total(f"{f}_us", taken) for f in FORMS},
+        "kernel_layers_fwd_cold_us": cold(taken),
         "kernel_layers_bound_us": total("bound_us", taken),
     }
 

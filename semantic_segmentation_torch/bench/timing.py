@@ -49,13 +49,31 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str | None = None):
+FLUSH_BYTES = 96 << 20          # written between cold launches: > 50 MB L2
+FLUSH_KERNEL = "bitwise_not"    # the flush's kernel, left out of the sums
+_flush_buf: list = []
+
+
+def flush_l2():
+    """Evict the L2 cache: one in-place pass over ``FLUSH_BYTES`` (read and
+    written back), a kernel whose name holds ``FLUSH_KERNEL``."""
+    import torch
+    if not _flush_buf:
+        _flush_buf.append(torch.zeros(FLUSH_BYTES, dtype=torch.uint8,
+                                      device="cuda"))
+    _flush_buf[0].bitwise_not_()
+
+
+def device_ms(fn, iters: int, kernel: str | None = None,
+              cold: bool = False):
     """Device time per call of ``fn``: the summed durations of the device
     kernels it launches (only those whose name holds ``kernel``, if given)
-    over ``iters`` calls, from torch.profiler. A trace that holds no such
+    over ``iters`` calls, from torch.profiler. Warm: the calls run back to
+    back, their inputs in L2. ``cold``: ``flush_l2`` runs before each call
+    and its kernel is left out of the sum. A trace that holds no such
     kernel (the profiler now and then records no device activity) is taken
     again, up to three times in all; then ``time_ms`` stands in, and says
-    so. Inputs are warm in L2."""
+    so (warm only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -65,14 +83,22 @@ def device_ms(fn, iters: int, kernel: str | None = None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if cold:
+                    flush_l2()
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        flushes = sum(FLUSH_KERNEL in e.name for e in kernels)
+        spans = [e.time_range.end - e.time_range.start for e in kernels
+                 if FLUSH_KERNEL not in e.name
                  and (kernel is None or kernel in e.name)]
-        if spans:
+        if spans and (not cold or flushes == iters):
             return sum(spans) / 1e3 / iters
+    if cold:
+        raise RuntimeError(f"cold timing: no trace held the {iters} L2 "
+                           f"flushes and a kernel {kernel or ''}")
     print(f"[timing] no device kernel{' ' + kernel if kernel else ''} "
           "in three profiler traces: CUDA events instead")
     return time_ms(fn, iters)

@@ -36,8 +36,9 @@ SIGNATURES = {
     "equalize_uint8": ("equalize_uint8", [_P, _P, _I, _I, _I, _P]),
     # histogram256(in, out, n, hw, stream)
     "histogram256": ("histogram256", [_P, _P, _I, _I, _P]),
-    # conv_down4_bf16(x, w, y, b, h, w, c, cout, stream)
-    "conv_down4": ("conv_down4_bf16", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # conv_down4_bf16(x, w, y, ws, tickets, b, h, w, c, cout, rows, swap,
+    #                 x_tma, split, k_per_split, stream)
+    "conv_down4": ("conv_down4_bf16", [_P] * 5 + [_I] * 10 + [_P]),
 }
 
 _loaded: dict = {}                 # name -> its loaded ctypes function
@@ -126,5 +127,5 @@ def launch(name: str, device, *args):
         err = kernel(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
+                           f"{'cudaError' if err > 0 else 'code'} {err}")
     kernels.LAUNCHES[name] += 1

@@ -149,6 +149,9 @@ def warp_affine_batch(imgs_nhwc, mats, cval: float = 0.0):
     if imgs_nhwc.device.type != "cuda":
         raise ValueError(f"warp_affine_batch: unsupported device "
                          f"{imgs_nhwc.device}")
+    if n * h * w * c >= 2**31 or n > 65535:
+        raise ValueError(f"warp_affine_batch: the kernel indexes in 32 bits "
+                         f"and takes n <= 65535, got {tuple(imgs_nhwc.shape)}")
     x = imgs_nhwc.contiguous()
     coef = _inverse(mats)[:, :2, :].reshape(n, 6).contiguous()
     out = torch.empty_like(x)

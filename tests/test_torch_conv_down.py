@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from semantic_segmentation_torch import kernels
+from semantic_segmentation_torch.bench.conv_down import LAYERS
 from semantic_segmentation_torch.ops.conv import conv_down4, conv_down4_ref
 
 _SCRIPT = pathlib.Path(__file__).resolve().parents[1] / "scripts" / \
@@ -131,3 +132,77 @@ def test_bench_bounds_and_weighted_sums():
     # a layer the kernel does not take counts cuDNN's time in the total
     assert s["weighted_fwd_us"]["kernel"] == 7 * 3 * 20 + 2 * 2 * 20 + \
         3 * 10 + 2 * 10
+
+
+@pytest.mark.parametrize("layer", [r for r in LAYERS if r[2] >= 8],
+                         ids=lambda r: r[0])
+def test_plan_fills_the_card_at_flagship_layers(layer):
+    """Every flagship layer the kernel takes: the wgmma path with at least
+    one CTA per SM of an H100 (132), K split into ranges of whole K-tiles
+    that cover it exactly (the last may be shorter), swap-AB exactly where
+    M < 64, and a workspace that holds one f32 tile per CTA."""
+    from semantic_segmentation_torch.ops.conv import (K_TILE, N_TILE, SMS,
+                                                      conv_down4_k_ranges,
+                                                      conv_down4_plan,
+                                                      x_tma_box)
+    _, hw, cin, cout, _ = layer
+    m, k = 2 * (hw // 2) ** 2, 16 * cin
+    plan = conv_down4_plan(2, hw, hw, cin, cout)
+    assert plan.path == "wgmma" and plan.ctas >= SMS == 132
+    assert plan.swap == (m < 64)
+    assert plan.rows >= m if plan.swap else plan.rows == 64
+    assert plan.tiles == -(-m // plan.rows) * -(-cout // N_TILE)
+    assert plan.ctas == plan.tiles * plan.split
+    assert plan.k_tiles * K_TILE == k
+    ranges = conv_down4_k_ranges(plan)
+    assert len(ranges) == plan.split and ranges[0][0] == 0
+    assert ranges[-1][1] == plan.k_tiles
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0]
+               for i in range(len(ranges) - 1))
+    assert all(b - a == plan.k_per_split for a, b in ranges[:-1])
+    assert plan.workspace_bytes == (
+        plan.split * plan.tiles * plan.rows * N_TILE * 4
+        if plan.split > 1 else 0)
+    # the pixel tile by one TMA box on G_d2..G_d6, by cp.async on the
+    # 8-pixel tiles of G_d7 and G_d8; a box holds exactly a tile's pixels
+    assert plan.x_tma == (plan.rows >= 32)
+    tb, th, tw = x_tma_box(plan.rows, hw // 2, hw // 2, cin)
+    assert tb * th * tw == plan.rows and (hw // 2) % tw == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 12, 64), (2, 32, 32, 16, 20),
+                                   (2, 32, 32, 12, 20)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plan_off_multiples_of_8_takes_the_generic_path(shape):
+    from semantic_segmentation_torch.ops.conv import conv_down4_plan
+    plan = conv_down4_plan(*shape)
+    assert plan.path == "generic" and plan.split == 1 and not plan.x_tma
+    assert plan.workspace_bytes == 0
+
+
+def test_bench_cold_sums_weight_rows_as_the_warm_ones():
+    """The cold summary weights each row by its uses, as the warm one does,
+    and lets cuDNN's cold time stand in where the kernel refuses a layer."""
+    from semantic_segmentation_torch.bench.conv_down import summarize
+    rows = []
+    for i, (tag, hw, cin, cout, mult) in enumerate(LAYERS):
+        row = {"layer": tag, "cin": cin, "mult": mult, "bound_us": 1.0,
+               "cudnn_us": 10.0 + i, "cudnn_cold_us": 10.0 + i}
+        if cin >= 8:
+            row.update(kernel_err=0.0, kernel_us=20.0 + i,
+                       kernel_cold_us=20.0 + i, plain_us=30.0)
+        rows.append(row)
+    s = summarize(rows)
+    assert s["weighted_fwd_cold_us"] == {
+        f: s["weighted_fwd_us"][f] for f in ("cudnn", "kernel")}
+    assert s["kernel_layers_fwd_cold_us"] == {
+        f: s["kernel_layers_fwd_us"][f] for f in ("cudnn", "kernel")}
+    for r in rows:
+        r["kernel_cold_us"] = r.get("kernel_cold_us", 0.0) * 2
+        r["cudnn_cold_us"] *= 3
+    s2 = summarize(rows)
+    assert s2["kernel_layers_fwd_cold_us"]["kernel"] == pytest.approx(
+        2 * s["kernel_layers_fwd_us"]["kernel"])
+    assert s2["weighted_fwd_cold_us"]["cudnn"] == pytest.approx(
+        3 * s["weighted_fwd_us"]["cudnn"])

@@ -1,11 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-and at the trainer's and the benchmarks' shapes: the warp within 1e-4 with
-identical > 0.1 masks (identity and flip exact), the equalize and the
-histogram bit for bit, the down-conv within 1e-2 of the plain version's
-largest magnitude (one bf16 rounding of each output; f32 sums in another
-order) at the flagship's layers and at shapes that take each load path of
-the kernel. Each kernel call counts one launch. Marked ``cuda``: without a card these skip. On a machine with one
-(no JAX needed there):
+and at the trainer's and the benchmarks' shapes: the warp exact (max |err|
+0, identical > 0.1 masks; identity and flip exact) at c = 1 and 3, n = 1 to
+3 and a width off multiples of 4; the equalize and the histogram bit for
+bit; the down-conv within 1e-2 of the plain version's largest magnitude
+(one bf16 rounding of each output; f32 sums in another order) at the
+flagship's layers, at M = 2, 8, 32 and 130, at a split whose last K range is
+ragged and at shapes off multiples of 8 (the generic path), and the same
+bit for bit from call to call. Each kernel call counts one launch. Marked
+``cuda``: without a card these skip. On a machine with one (no JAX needed
+there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -17,7 +20,10 @@ from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.bench.conv_down import LAYERS, layer_inputs
 from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
 from semantic_segmentation_torch.ops import augment, image
-from semantic_segmentation_torch.ops.conv import conv_down4, conv_down4_ref
+from semantic_segmentation_torch.ops.conv import (conv_down4,
+                                                  conv_down4_k_ranges,
+                                                  conv_down4_plan,
+                                                  conv_down4_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,7 +55,24 @@ def test_warp_kernel_matches_plain(dev, kind):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["warp_affine"] == before + 1
     ref = augment.warp_affine_batch_ref(x, mats)
-    assert (out - ref).abs().max().item() < 1e-4
+    assert (out - ref).abs().max().item() == 0.0
+    assert torch.equal(out > 0.1, ref > 0.1)
+
+
+# (n, h, w, c): each channel count and batch size, a width off multiples of
+# 4 (the masked scalar stores) and one that is a multiple (float4 stores)
+@pytest.mark.parametrize("shape", [(1, 64, 64, 1), (3, 64, 64, 1),
+                                   (1, 40, 37, 3), (3, 33, 50, 3),
+                                   (2, 31, 45, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_warp_kernel_exact_across_shapes(dev, shape):
+    n, h, w, _ = shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand(shape, generator=g, device=dev)
+    mats = augment.sample_affine_batch(n, h, w, g)
+    out = augment.warp_affine_batch(x, mats)
+    ref = augment.warp_affine_batch_ref(x, mats)
+    assert (out - ref).abs().max().item() == 0.0
     assert torch.equal(out > 0.1, ref > 0.1)
 
 
@@ -132,12 +155,48 @@ def test_conv_kernel_matches_plain_at_flagship_layers(dev, layer):
     _conv_close(x, w)
 
 
-# C_in and C_out off multiples of 8 take the element loads of the kernel
+# C_in and C_out off multiples of 8 take the generic kernel's element loads
 @pytest.mark.parametrize("cin,cout", [(12, 64), (16, 20), (12, 20)])
 def test_conv_kernel_matches_plain_off_multiples_of_8(dev, cin, cout):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w = layer_inputs(32, cin, cout, np.random.default_rng(1), dev)
     _conv_close(x, w)
+
+
+# (B, H, W, C_in, C_out) at M = 2, 8 and 32 (swap-AB, split-K; C_out 40
+# and 136 leave a part-filled C_out tile) and M = 130 (a part-filled pixel
+# tile)
+SMALL_M = [(1, 2, 4, 64, 40), (2, 4, 4, 256, 64), (2, 8, 8, 128, 136),
+           (2, 10, 26, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", SMALL_M, ids=lambda s: "x".join(map(str, s)))
+def test_conv_kernel_matches_plain_at_small_m(dev, shape):
+    b, h, w, cin, cout = shape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, cin))).to(
+        dev, torch.bfloat16)
+    wt = torch.from_numpy(0.05 * rng.standard_normal((4, 4, cin, cout))).to(
+        dev, torch.bfloat16)
+    assert conv_down4_plan(b, h, w, cin, cout).path == "wgmma"
+    _conv_close(x, wt)
+
+
+def test_conv_kernel_ragged_split_and_bit_identical(dev):
+    """G_d5 (M = 128) splits K into 9 ranges, the last shorter; G_d8 (M = 2)
+    swaps the operands and splits too. Two calls give the same bits."""
+    for hw in (16, 2):
+        plan = conv_down4_plan(2, hw, hw, 512, 512)
+        ranges = conv_down4_k_ranges(plan)
+        assert plan.split > 1
+        if hw == 16:
+            assert ranges[-1][1] - ranges[-1][0] < plan.k_per_split
+        x, w = layer_inputs(hw, 512, 512, np.random.default_rng(8), dev)
+        _conv_close(x, w)
+        first = conv_down4(x, w)
+        for _ in range(3):
+            assert torch.equal(conv_down4(x, w), first)
 
 
 @pytest.mark.parametrize("cin", [1, 2])
