@@ -12,11 +12,13 @@ Phases, each of which stops the script with a nonzero exit on failure:
    - warp: (2, 256, 256, 1) binary masks under ``sample_affine_batch``
      draws and (2, 256, 256, 3) random floats, max |err| 0 and an
      identical > 0.1 mask; identity and flip matrices exact;
-   - equalize: bit-exact on random uint8 (2, 256, 256, 1), a constant
-     plane, a two-value plane, and the uint8 image of a full-width unet_256
-     generator's output;
-   - histogram: bit-exact against its plain version and ``np.bincount`` on
-     the same four families at (2, 256, 256) and (4, 256, 256);
+   - equalize and histogram (one thread-block cluster per image): each
+     bit-exact against its plain version (the histogram also against
+     ``np.bincount``) on random uint8 (2, 256, 256, 1), a constant plane, a
+     two-value plane and the uint8 image of a full-width unet_256
+     generator's output (the histogram also at (4, 256, 256)), at c = 3,
+     at hw off multiples of 16, on views 1 byte off a 16-byte boundary,
+     and at (64, 512, 512); each call one launch of one kernel;
    - down-conv: bf16, within 1e-2 of the plain version's largest magnitude
      at the 9 flagship layers with C_in >= 8 (``bench.conv_down.LAYERS``;
      G_d5's last split-K range is shorter than the others), at M = 2, 8,
@@ -45,7 +47,11 @@ Phases, each of which stops the script with a nonzero exit on failure:
    time (CUDA events) on the inputs of phase 3, beside their plain
    versions' and the library call's (``F.grid_sample`` for the warp), and
    the two benchmark entry points that run the other kernels:
-   ``bench.kernels`` (the histogram's path) and ``bench.conv_down`` (the
+   ``bench.kernels`` (the histogram's path, and ``time_cases``: the
+   equalize at (2, 256, 256, 1) on the generator image and random bytes,
+   the histogram at (4, 256, 256) on random and constant images, warm, and
+   both at (64, 512, 512) with L2 flushed, each as kernel and as call
+   device time beside its bytes bound) and ``bench.conv_down`` (the
    down-conv's, all 11 layers, against ``F.conv2d``, warm and with L2
    flushed).
 
@@ -147,26 +153,16 @@ def phase_kernels(torch, dev, G, arch):
         "warp_affine_kernel", lambda: augment.warp_affine_batch(masks, mats),
         lambda: augment.warp_affine_batch_ref(masks, mats), lib_warp)
 
-    # -- equalize ----------------------------------------------------------
+    # -- equalize and histogram (one cluster kernel each) -------------------
     fake_mask = image.threshold_mask(out_k, 0.1)
     with torch.no_grad():
         g_out = G(fake_mask.permute(0, 3, 1, 2), arch).permute(0, 2, 3, 1)
-    families = {
-        "random": torch.randint(0, 256, (2, 256, 256, 1), generator=gen,
-                                device=dev, dtype=torch.uint8),
-        "constant": torch.full((2, 256, 256, 1), 77, device=dev,
-                               dtype=torch.uint8),
-        "two_value": torch.where(
-            torch.rand(2, 256, 256, 1, generator=gen, device=dev) < 0.3,
-            10, 200).to(torch.uint8),
-        "generator_image": image.to_uint8(image.minmax_normalize(g_out)),
-    }
-    for fam, x in families.items():
-        k, r = image.equalize_uint8(x), image.equalize_uint8_ref(x)
-        check(torch.equal(k, r), f"equalize {fam}: not bit-exact "
-              f"({(k != r).sum().item()} pixels differ)")
-    print(f"[kernels] equalize: bit-exact on {', '.join(families)}")
-    x = families["generator_image"]
+    gen_img = image.to_uint8(image.minmax_normalize(g_out))
+    checked = phase_cluster_check(torch, dev, gen_img)
+    print(f"[kernels] equalize and histogram: bit-exact (histogram also "
+          f"against np.bincount), one launch per call, on "
+          f"{'; '.join(checked)}")
+    x = gen_img
     # one uint8 read + one written per pixel; a histogram add and a LUT
     # lookup per pixel, integer work counted at the f32 rate (the data
     # sheet gives no int32 rate outside the tensor cores)
@@ -177,25 +173,77 @@ def phase_kernels(torch, dev, G, arch):
         "replaces": "semantic_segmentation_tpu/ops/pallas_kernels.py:147",
         "max_abs_err": 0.0,
         "bound_ms": b, "bound_us": b * 1e3, "bound_by": why,
-        "shape": [2, 256, 256, 1]}
+        "shape": [2, 256, 256, 1], "image": "generator"}
     timers["equalize_uint8"] = (
         "equalize_kernel", lambda: image.equalize_uint8(x),
         lambda: image.equalize_uint8_ref(x), None)
+    phase_conv_check(torch, dev)
+    return records, timers, gen_img
 
-    # -- histogram -----------------------------------------------------------
-    for fam, planes in families.items():
-        x2 = planes[..., 0].contiguous()                       # (2,256,256)
-        for xs in (x2, torch.cat([x2, x2.flip(1)])):           # and (4,...)
+
+def phase_cluster_check(torch, dev, gen_img):
+    """The equalize and the histogram against their plain versions, bit for
+    bit, and the histogram against np.bincount, on: random, constant,
+    two-value and generator images at the trainer's (2, 256, 256, 1) (the
+    histogram also at (4, 256, 256)); c = 3 at 256^2; hw off multiples of
+    16; a view 1 byte off a 16-byte boundary; and (64, 512, 512). The
+    histogram runs on the first channel's planes. Each call is one launch
+    of one kernel: the profiler sees no other kernel (no zeroing fill).
+    Returns the labels of the cases checked."""
+    import numpy as np
+
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.bench.kernels import SYMBOLS, family
+    from semantic_segmentation_torch.bench.timing import call_kernels
+    from semantic_segmentation_torch.ops import image
+
+    def unaligned(x):
+        base = torch.empty(x.numel() + 16, dtype=torch.uint8, device=dev)
+        view = base[1:1 + x.numel()].view(x.shape)
+        view.copy_(x)
+        check(view.data_ptr() % 16 == 1, "unaligned view is aligned")
+        return view
+
+    cases = {f: family(f, (2, 256, 256, 1), dev) for f in
+             ("random", "constant", "two_value")}
+    cases["generator"] = gen_img
+    cases["random c=3"] = family("random", (2, 256, 256, 3), dev)
+    cases["two_value c=3"] = family("two_value", (2, 256, 256, 3), dev)
+    cases["random 250^2"] = family("random", (2, 250, 250, 1), dev)
+    cases["random unaligned"] = unaligned(family("random", (2, 256, 256, 1),
+                                                 dev, seed=1))
+    cases["random 250^2 unaligned"] = unaligned(cases["random 250^2"])
+    cases["random (64, 512, 512)"] = family("random", (64, 512, 512, 1), dev)
+    cases["generator_like (64, 512, 512)"] = family(
+        "generator_like", (64, 512, 512, 1), dev)
+    for label, x in cases.items():
+        planes = x[..., 0] if x.shape[-1] == 1 else x[..., 0].contiguous()
+        stacks = [planes]
+        if tuple(planes.shape) == (2, 256, 256):
+            stacks.append(torch.cat([planes, planes.flip(1)]))  # (4, ...)
+        before = dict(kernels.LAUNCHES)
+        k, r = image.equalize_uint8(x), image.equalize_uint8_ref(x)
+        check(torch.equal(k, r), f"equalize {label}: not bit-exact "
+              f"({(k != r).sum().item()} pixels differ)")
+        for xs in stacks:
             k, r = image.histogram256(xs), image.histogram256_ref(xs)
             counts = np.stack([np.bincount(p.ravel(), minlength=256)
                                for p in xs.cpu().numpy()])
             check(torch.equal(k, r) and np.array_equal(k.cpu().numpy(),
                                                        counts),
-                  f"histogram {fam} {tuple(xs.shape)}: not bit-exact")
-    print(f"[kernels] histogram: bit-exact on {', '.join(families)} at "
-          "(2, 256, 256) and (4, 256, 256)")
-    phase_conv_check(torch, dev)
-    return records, timers
+                  f"histogram {label} {tuple(xs.shape)}: not bit-exact")
+        launched = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+        check(launched["equalize_uint8"] == 1
+              and launched["histogram256"] == len(stacks),
+              f"{label}: launches {launched}, not one per call")
+    x = cases["generator"]
+    for name, fn in (("equalize_uint8", lambda: image.equalize_uint8(x)),
+                     ("histogram256", lambda: image.histogram256(
+                         x[..., 0]))):
+        names = call_kernels(fn)
+        check(len(names) == 1 and SYMBOLS[name] in names[0],
+              f"{name}: one call launched {names}, not one kernel")
+    return list(cases)
 
 
 # (B, H, W, C_in, C_out) at M = 2, 8, 32 (swap-AB) and 130, as in
@@ -441,11 +489,12 @@ def phase_trainer(torch, ckpt):
     return stats
 
 
-def phase_benches(torch, records):
+def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
-    ``bench.kernels`` (the histogram, at (4, 256, 256)) and
-    ``bench.conv_down`` (the down-conv, all 11 layers). Adds the two
-    kernels' records; returns each path's launch counts."""
+    ``bench.kernels`` (the histogram, at (4, 256, 256), then the cluster
+    kernels' ``time_cases``) and ``bench.conv_down`` (the down-conv, all 11
+    layers). Adds the two kernels' records and the cases to the equalize's
+    and the histogram's; returns each path's launch counts."""
     from semantic_segmentation_torch import kernels
     from semantic_segmentation_torch.bench import conv_down
     from semantic_segmentation_torch.bench import kernels as kernels_bench
@@ -454,10 +503,16 @@ def phase_benches(torch, records):
 
     kernels.reset_launches()
     bench = kernels_bench.run()
+    cases = kernels_bench.time_cases(gen_img)
     launches["bench_kernels"] = dict(kernels.LAUNCHES)
     check(launches["bench_kernels"]["histogram256"] > 0,
           "bench.kernels: the histogram kernel was not launched")
     print("[bench.kernels] " + json.dumps(bench))
+    for c in cases:
+        print("[bench.kernels case] " + json.dumps(c))
+    for name in ("equalize_uint8", "histogram256"):
+        check(all(c["kernel_ms"] > 0 for c in cases if c["kernel"] == name),
+              f"bench.kernels: {name} not timed at every case")
     h = bench["histogram256"]
     n_px = math.prod(h["shape"])
     # each pixel read once, the int32 counts written once; one add per
@@ -468,9 +523,11 @@ def phase_benches(torch, records):
         "source": "semantic_segmentation_torch/kernels/csrc/histogram256.cu",
         "replaces": "semantic_segmentation_tpu/ops/pallas_kernels.py:66",
         "max_abs_err": h["max_abs_err"], "ms": h["ms"],
-        "wrapper_call_ms": h["wrapper_call_ms"], "plain_ms": h["plain_ms"],
-        "library_ms": None, "bound_ms": b, "bound_us": b * 1e3,
-        "bound_by": why, "shape": h["shape"]}
+        "call_ms": h["call_ms"], "wrapper_call_ms": h["wrapper_call_ms"],
+        "plain_ms": h["plain_ms"], "library_ms": None, "bound_ms": b,
+        "bound_us": b * 1e3, "bound_by": why, "shape": h["shape"]}
+    for name in ("equalize_uint8", "histogram256"):
+        records[name]["cases"] = [c for c in cases if c["kernel"] == name]
 
     kernels.reset_launches()
     rows, summary = conv_down.run(
@@ -547,7 +604,7 @@ def main() -> int:
     init = torch.Generator().manual_seed(0)
     G = define_G(1, 1, "unet_256", 64, True, init).to(dev).eval()
     arch = init_arch_params(init)["upconv"].to(dev)
-    records, timers = phase_kernels(torch, dev, G, arch)
+    records, timers, gen_img = phase_kernels(torch, dev, G, arch)
     gen = torch.Generator(device=dev).manual_seed(1)
     from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
     ds = SyntheticSegDataset(n=2, size=256, seed=4)
@@ -571,7 +628,7 @@ def main() -> int:
     phase_timing(records, timers)
     paths = {"pix2pix_trainer": p2p_stats["launches"],
              "end2end_trainer": stats["launches"]}
-    paths.update(phase_benches(torch, records))
+    paths.update(phase_benches(torch, records, gen_img))
     main_path = {"warp_affine": "end2end_trainer",
                  "equalize_uint8": "end2end_trainer",
                  "histogram256": "bench_kernels",

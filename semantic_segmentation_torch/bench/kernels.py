@@ -5,7 +5,20 @@ warp on (2, 256, 256, 1) binary masks under ``sample_affine_batch`` draws.
 Times are device time per call (torch.profiler, inputs warm in L2); the
 wrapper's call time (CUDA events, host work included) is beside them.
 
+Then the two cluster kernels at the shapes that measure them
+(``time_cases``): the equalize at the trainer's (2, 256, 256, 1) on a
+full-width generator's image and on random bytes, the histogram at
+(4, 256, 256) on random and constant images, each warm, and both at
+(64, 512, 512) cold (L2 flushed before each call), where a share of the
+HBM bound means something. Each case gives the kernel's device time, the
+call's device time (every kernel one wrapper call launches) and the bytes
+bound.
+
     python -m semantic_segmentation_torch.bench.kernels
+
+``time_cases`` uses only the wrappers' public functions, so
+``scripts/ab_torch_image_kernels.py`` runs it against an older checkout's
+package too.
 """
 
 from __future__ import annotations
@@ -15,8 +28,8 @@ import json
 import numpy as np
 import torch
 
-from semantic_segmentation_torch.bench.timing import (card_line, device_ms,
-                                                      time_ms)
+from semantic_segmentation_torch.bench.timing import (bound_ms, card_line,
+                                                      device_ms, time_ms)
 from semantic_segmentation_torch.ops import augment, image
 
 # device kernel names, to pick the kernel out of the profiler trace
@@ -42,6 +55,95 @@ def inputs():
 
 
 ITERS = 200                     # timed kernel calls; a quarter for plain
+
+
+def generator_image(dev="cuda"):
+    """(2, 256, 256, 1) uint8: the fake-image branch's input to the
+    equalize, a full-width unet_256 generator (random weights from seed 0)
+    on two thresholded synthetic masks, min-max normalised and quantised as
+    the trainer does."""
+    from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
+    from semantic_segmentation_torch.models.pix2pix.networks import define_G
+    from semantic_segmentation_torch.ops.nas import init_arch_params
+    init = torch.Generator().manual_seed(0)
+    G = define_G(1, 1, "unet_256", 64, True, init).to(dev).eval()
+    arch = init_arch_params(init)["upconv"].to(dev)
+    ds = SyntheticSegDataset(n=2, size=256, seed=3)
+    masks = torch.from_numpy(np.stack([ds[i]["mask"] for i in range(2)]))
+    mask = image.threshold_mask(masks.float().to(dev), 0.1)
+    with torch.no_grad():
+        out = G(mask.permute(0, 3, 1, 2), arch).permute(0, 2, 3, 1)
+    return image.to_uint8(image.minmax_normalize(out)).contiguous()
+
+
+def family(name: str, shape, dev="cuda", seed: int = 0):
+    """uint8 images of ``shape``: "random" bytes, a "constant" plane, a
+    "two_value" plane (10 or 200, 30% / 70%), or "generator_like", a
+    min-max normalised smooth field."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if name == "random":
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.uint8)
+    if name == "constant":
+        return torch.full(shape, 77, device=dev, dtype=torch.uint8)
+    if name == "two_value":
+        u = torch.rand(shape, generator=g, device=dev)
+        return torch.where(u < 0.3, 10, 200).to(torch.uint8)
+    if name == "generator_like":
+        f = torch.tanh(torch.randn(shape, generator=g, device=dev))
+        return image.to_uint8(image.minmax_normalize(f))
+    raise KeyError(name)
+
+
+# (kernel, family, shape, cold): the shapes that measure the cluster
+# kernels. Warm at the trainer's and the benchmark's shapes; cold at
+# (64, 512, 512), whose 16.8 MB could otherwise be served from the 50 MB L2.
+CASES = [("equalize_uint8", "generator_image", (2, 256, 256, 1), False),
+         ("equalize_uint8", "random", (2, 256, 256, 1), False),
+         ("equalize_uint8", "random", (64, 512, 512, 1), True),
+         ("equalize_uint8", "generator_like", (64, 512, 512, 1), True),
+         ("histogram256", "random", (4, 256, 256), False),
+         ("histogram256", "constant", (4, 256, 256), False),
+         ("histogram256", "random", (64, 512, 512), True),
+         ("histogram256", "constant", (64, 512, 512), True)]
+
+
+def case_bound(kernel: str, shape):
+    """(bound ms, 'bytes' or 'operations'): the equalize reads and writes
+    each byte once, with a histogram add and a LUT lookup per byte; the
+    histogram reads each byte once and writes (N, 256) int32 counts, one
+    add per byte. Integer work counted at the f32 rate (the data sheet
+    gives no int32 rate outside the tensor cores)."""
+    n = int(np.prod(shape))
+    if kernel == "equalize_uint8":
+        return bound_ms(2 * n, 2 * n)
+    return bound_ms(n + shape[0] * 256 * 4, n)
+
+
+def time_cases(gen_image=None, iters: int = ITERS):
+    """One record per entry of ``CASES``, over ``iters`` calls (a quarter
+    as many cold): the kernel's device time per call (``kernel_ms``), the
+    call's (``call_ms``: every kernel the wrapper launches, a zeroing fill
+    included), the bound and the share of it the kernel reaches.
+    ``gen_image``: the generator image (made here if not given)."""
+    fns = {"equalize_uint8": image.equalize_uint8,
+           "histogram256": image.histogram256}
+    records = []
+    for kernel, fam, shape, cold in CASES:
+        if fam == "generator_image":
+            x = gen_image if gen_image is not None else generator_image()
+        else:
+            x = family(fam, shape)
+        fn = fns[kernel]
+        b, why = case_bound(kernel, shape)
+        n = iters // 4 if cold else iters
+        k_ms = device_ms(lambda: fn(x), n, SYMBOLS[kernel], cold=cold)
+        call_ms = device_ms(lambda: fn(x), n, cold=cold)
+        records.append({"kernel": kernel, "family": fam, "shape": list(shape),
+                        "cold": cold, "kernel_ms": k_ms, "call_ms": call_ms,
+                        "bound_ms": b, "bound_by": why,
+                        "share_of_bound": b / k_ms})
+    return records
 
 
 def run():
@@ -76,6 +178,7 @@ def run():
             _check(np.array_equal(out.cpu().numpy(), counts),
                    "histogram256: differs from np.bincount")
         rec.update(ms=device_ms(kernel_fn, ITERS, SYMBOLS[name]),
+                   call_ms=device_ms(kernel_fn, ITERS),
                    wrapper_call_ms=time_ms(kernel_fn, ITERS),
                    plain_ms=device_ms(plain_fn, ITERS // 4))
         records[name] = rec
@@ -87,7 +190,7 @@ def main():
         raise SystemExit("bench.kernels needs a CUDA card")
     print(json.dumps({"card": card_line(),
                       "device": torch.cuda.get_device_name(0),
-                      "kernels": run()}))
+                      "kernels": run(), "cases": time_cases()}))
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ def time_ms(fn, iters: int) -> float:
 
 FLUSH_BYTES = 96 << 20          # written between cold launches: > 50 MB L2
 FLUSH_KERNEL = "bitwise_not"    # the flush's kernel, left out of the sums
+TRACES = 8                      # profiler traces device_ms takes at most
 _flush_buf: list = []
 
 
@@ -68,18 +69,23 @@ def device_ms(fn, iters: int, kernel: str | None = None,
               cold: bool = False):
     """Device time per call of ``fn``: the summed durations of the device
     kernels it launches (only those whose name holds ``kernel``, if given)
-    over ``iters`` calls, from torch.profiler. Warm: the calls run back to
-    back, their inputs in L2. ``cold``: ``flush_l2`` runs before each call
-    and its kernel is left out of the sum. A trace that holds no such
-    kernel (the profiler now and then records no device activity) is taken
-    again, up to three times in all; then ``time_ms`` stands in, and says
-    so (warm only)."""
+    per call, over ``iters`` calls, from torch.profiler. Warm: the calls run
+    back to back, their inputs in L2. ``cold``: ``flush_l2`` runs before
+    each call and its kernel is left out of the sum; the flushes divide the
+    trace into calls, and the mean is over the calls the trace holds whole.
+    The profiler now and then records no device activity, or drops a call's
+    events: a trace that holds less than 90% of the calls (warm with
+    ``kernel``: of the kernels; warm without: any kernel) is taken again,
+    after one more untimed call, up to ``TRACES`` times in all. Raises
+    RuntimeError, with what the last trace held, when none does: a number
+    returned here is always the profiler's device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(TRACES):
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -87,18 +93,58 @@ def device_ms(fn, iters: int, kernel: str | None = None,
                     flush_l2()
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
+        kernels = sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)),
+            key=lambda e: e.time_range.start)
         flushes = sum(FLUSH_KERNEL in e.name for e in kernels)
         spans = [e.time_range.end - e.time_range.start for e in kernels
                  if FLUSH_KERNEL not in e.name
                  and (kernel is None or kernel in e.name)]
-        if spans and (not cold or flushes == iters):
+        if cold:
+            calls, cur = [], None        # the kernels after each flush
+            for e in kernels:
+                if FLUSH_KERNEL in e.name:
+                    if cur:
+                        calls.append(sum(cur))
+                    cur = []
+                elif cur is not None and (kernel is None or kernel in e.name):
+                    cur.append(e.time_range.end - e.time_range.start)
+            if cur:
+                calls.append(sum(cur))
+            if len(calls) >= 0.9 * iters:
+                return sum(calls) / 1e3 / len(calls)
+        elif kernel is not None and 0.9 * iters <= len(spans) <= iters:
+            return sum(spans) / 1e3 / len(spans)
+        elif kernel is None and spans:
             return sum(spans) / 1e3 / iters
-    if cold:
-        raise RuntimeError(f"cold timing: no trace held the {iters} L2 "
-                           f"flushes and a kernel {kernel or ''}")
-    print(f"[timing] no device kernel{' ' + kernel if kernel else ''} "
-          "in three profiler traces: CUDA events instead")
-    return time_ms(fn, iters)
+    names = sorted({e.name[:48] for e in kernels})
+    raise RuntimeError(
+        f"device_ms: {TRACES} profiler traces without 90% of {iters} "
+        f"{'cold ' if cold else ''}calls{' of ' + kernel if kernel else ''} "
+        f"(the last: {len(spans)} kernels, {flushes} flushes, names {names})")
+
+
+def call_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of ``fn`` launches, in
+    order (torch.profiler, after a warm-up call). A trace with no device
+    activity is taken again, up to three times in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)),
+            key=lambda e: e.time_range.start)]
+        if names:
+            break
+    return names

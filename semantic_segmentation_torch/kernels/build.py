@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process (all started
 together) into ``build/kernels/lib<name>-<hash>.so`` at the repository root,
-where ``<hash>`` covers the source and the flags: an edited source gets a
-fresh library and an unchanged one is reused. The sources expose plain C
+where ``<hash>`` covers the source, every header ``csrc/*.cuh`` (which any
+source may include) and the flags: an edited source or header gets a fresh
+library and an unchanged one is reused. The sources expose plain C
 functions, so no PyTorch header is compiled (seconds, not minutes).
 
 Nothing here runs at import: the CPU tests import every module.
@@ -32,10 +33,10 @@ SIGNATURES = {
     # warp_affine_f32(img, coef, out, n, h, w, c, cval, stream)
     "warp_affine": ("warp_affine_f32",
                     [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
-    # equalize_uint8(in, out, n, hw, c, stream)
-    "equalize_uint8": ("equalize_uint8", [_P, _P, _I, _I, _I, _P]),
-    # histogram256(in, out, n, hw, stream)
-    "histogram256": ("histogram256", [_P, _P, _I, _I, _P]),
+    # equalize_uint8(in, out, n, hw, c, cluster, slice, keep, smem, stream)
+    "equalize_uint8": ("equalize_uint8", [_P, _P] + [_I] * 7 + [_P]),
+    # histogram256(in, out, n, hw, cluster, slice, smem, stream)
+    "histogram256": ("histogram256", [_P, _P] + [_I] * 5 + [_P]),
     # conv_down4_bf16(x, w, y, ws, tickets, b, h, w, c, cout, rows, swap,
     #                 x_tma, split, k_per_split, stream)
     "conv_down4": ("conv_down4_bf16", [_P] * 5 + [_I] * 10 + [_P]),
@@ -57,9 +58,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None, verbose: bool = False) -> dict[str, float]:

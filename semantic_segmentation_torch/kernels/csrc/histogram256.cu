@@ -1,77 +1,82 @@
-// Per-image 256-bin histograms of uint8 images.
+// Per-image 256-bin histograms of uint8 images, one thread-block cluster
+// per image.
 //
-// Replaces: semantic_segmentation_tpu/ops/pallas_kernels.py,
+// Replaces: semantic_segmentation_tpu/ops/pallas_kernels.py:66,
 //   histogram256_pallas / _hist_kernel: (N, H, W) uint8 -> (N, 256) int32
 //   counts. The TPU kernel counts by a (rows, W, 256) broadcast-compare and
-//   a reduction because Mosaic has no scatter; the card has shared-memory
-//   atomics, so this kernel scatters each pixel into its bin instead.
+//   a reduction, one grid step per image, because Mosaic has no scatter;
+//   the card has shared-memory atomics, so this kernel scatters each pixel
+//   into its bin instead.
 //
 // Bound on an H100: bytes. Each pixel is read once (N*H*W bytes) and the
-//   (N, 256) int32 counts written once; at (2, 256, 256) that is 131 KB read
-//   and 2 KB written, about 0.04 us at 3.35 TB/s. The launch (a few us)
-//   dominates: the kernel is launch-bound at every shape the repository
-//   uses.
+//   (N, 256) int32 counts written once: at (4, 256, 256) 262 KB and 4 KB,
+//   0.08 us at 3.35 TB/s, far under one launch; at (64, 512, 512) 16.8 MB,
+//   5.0 us, where the bound means something.
 //
-// Design: a grid of (chunk, image) blocks, each chunk kChunk pixels of one
-//   image, so a small batch still spreads over many SMs. A block of 256
-//   threads zeroes a shared 256-bin histogram, adds its chunk into it with
-//   shared-memory atomicAdd (four pixels per 32-bit load where the image
-//   size and the pointer allow it), and then adds each nonzero bin into the
-//   (N, 256) output with one global atomicAdd. The wrapper zeroes the output
-//   first. Integer atomics commute, so the counts are exact and do not
-//   depend on the order the blocks run in.
+// Design (hist256_cluster.cuh): a cluster of K CTAs per image, grid.x =
+//   K x N, so a small batch still spreads over many SMs and the batch has
+//   no 65,535 limit. Each CTA counts its contiguous slice with 16-byte
+//   loads into shared memory and stores each bin's count into its slot at
+//   the CTA that owns the bin (rank r owns bins [r * 256 / K,
+//   (r + 1) * 256 / K)), by asynchronous stores to distributed shared
+//   memory that the owner's mbarrier counts; once its slots are full each
+//   rank adds them and writes its own bins. So one call is one launch: no
+//   zeroed output, no global atomics, and the counts are exact and the
+//   same bit for bit from call to call.
+//
+// Skew: a constant or two-valued image sends a warp's adds to one bin; on
+//   this card those shared atomics cost no more than spread ones, and
+//   adding runs of equal bytes once was no faster (PERF.md), so every byte
+//   is one shared add.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hist256_cluster.cuh"
 
 namespace {
 
-constexpr int kBins = 256;
-constexpr int kThreads = 256;   // one bin per thread for the flush
-constexpr int kChunk = 4096;    // pixels per block; a multiple of 4
+using hist256::kBins;
+using hist256::Plan;
 
-__global__ void __launch_bounds__(kThreads)
-histogram256_kernel(const unsigned char* __restrict__ in,
-                    int* __restrict__ out, int hw) {
-  __shared__ int bins[kBins];
-  const int tid = threadIdx.x;
-  const int img = blockIdx.y;
-  bins[tid] = 0;
-  __syncthreads();
+__global__ void __launch_bounds__(hist256::kThreads, hist256::kMinCtas)
+histogram256_kernel(const uint8_t* __restrict__ in, int* __restrict__ out,
+                    int hw, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const long long img = blockIdx.x / p.cluster;
+  __shared__ uint64_t bar;
+  int* hist = reinterpret_cast<int*>(smem);
+  int* slots = hist + kBins;
 
-  const unsigned char* plane = in + (long long)img * hw;
-  const int start = blockIdx.x * kChunk;
-  const int end = min(start + kChunk, hw);
-  // 32-bit loads when every image starts on a 4-byte boundary
-  if ((hw & 3) == 0 && (reinterpret_cast<uintptr_t>(in) & 3) == 0) {
-    const unsigned int* words = reinterpret_cast<const unsigned int*>(plane);
-    for (int i = start / 4 + tid; i < end / 4; i += kThreads) {
-      const unsigned int v = words[i];
-      atomicAdd(&bins[v & 0xffu], 1);
-      atomicAdd(&bins[(v >> 8) & 0xffu], 1);
-      atomicAdd(&bins[(v >> 16) & 0xffu], 1);
-      atomicAdd(&bins[v >> 24], 1);
-    }
-  } else {
-    for (int i = start + tid; i < end; i += kThreads)
-      atomicAdd(&bins[plane[i]], 1);
-  }
-  __syncthreads();
-
-  const int count = bins[tid];
-  if (count) atomicAdd(&out[img * kBins + tid], count);
+  hist256::exchange_init(&bar);
+  const long long start = (long long)rank * p.slice;
+  const long long rest = hw - start;
+  const int len = rest <= 0 ? 0 : (rest < p.slice ? (int)rest : p.slice);
+  hist256::count_slice(in + img * hw + start, len, start, 1, hist, nullptr);
+  hist256::exchange(cl, hist, slots, &bar, kBins, false);
+  const int per = kBins / p.cluster;
+  int* row = out + img * kBins + rank * per;
+  for (int j = threadIdx.x; j < per; j += hist256::kThreads)
+    row[j] = hist256::slot_sum(slots, j, per, p.cluster);
 }
 
 }  // namespace
 
-// in: (n, hw) uint8, contiguous; out: (n, 256) int32, zeroed by the caller.
-// Launches on `stream`, allocates nothing, does not synchronise. Returns
-// cudaGetLastError() after the launch.
+// in: (n, hw) uint8, contiguous; out: (n, 256) int32, every entry written.
+// The plan's fields are those of ops/image.hist256_plan; smem is its dynamic
+// shared bytes. Launches on `stream`, allocates nothing, does not
+// synchronise. Returns the launch's CUDA error (cudaErrorInvalidValue for a
+// plan the kernel does not take).
 extern "C" int histogram256(const void* in, void* out, int n, int hw,
+                            int cluster, int slice, int smem,
                             void* stream) {
-  if (n == 0 || hw == 0) return 0;
-  const dim3 grid((hw + kChunk - 1) / kChunk, n);
-  histogram256_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)in, (int*)out, hw);
-  return (int)cudaGetLastError();
+  if (n == 0) return 0;
+  const Plan p{cluster, slice};
+  if (!hist256::plan_ok(p, 1) || n < 0 || hw < 0 ||
+      (long long)slice * cluster < hw ||
+      (long long)n * cluster > 0x7fffffffLL ||
+      smem < hist256::smem_bytes(p, 1, false, false))
+    return (int)cudaErrorInvalidValue;
+  return hist256::launch_clusters(
+      histogram256_kernel, n * cluster, cluster, smem, (cudaStream_t)stream,
+      (const uint8_t*)in, (int*)out, hw, p);
 }

@@ -2,7 +2,11 @@
 and at the trainer's and the benchmarks' shapes: the warp exact (max |err|
 0, identical > 0.1 masks; identity and flip exact) at c = 1 and 3, n = 1 to
 3 and a width off multiples of 4; the equalize and the histogram bit for
-bit; the down-conv within 1e-2 of the plain version's largest magnitude
+bit (the histogram also against np.bincount) on random, constant, two-value
+and generator-like images, at the benchmark's (64, 512, 512), at N = 1 and
+N = 70,000, at hw off multiples of 16, at c = 3, on a view 1 byte off a
+16-byte boundary, with slices kept in and streamed past shared memory,
+and the same from call to call; the down-conv within 1e-2 of the plain version's largest magnitude
 (one bf16 rounding of each output; f32 sums in another order) at the
 flagship's layers, at M = 2, 8, 32 and 130, at a split whose last K range is
 ragged and at shapes off multiples of 8 (the generic path), and the same
@@ -133,6 +137,84 @@ def test_histogram_kernel_bit_exact(dev, family, n):
 def test_histogram_kernel_odd_size(dev):
     x = _planes("random_3ch", dev)[..., 0][:, :63, :45].contiguous()
     assert torch.equal(image.histogram256(x), image.histogram256_ref(x))
+
+
+def _random_u8(shape, dev, seed=11):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, device=dev,
+                         dtype=torch.uint8)
+
+
+def _unaligned(x):
+    """The same values in a contiguous view that starts 1 byte past a
+    16-byte boundary."""
+    base = torch.empty(x.numel() + 16, dtype=torch.uint8, device=x.device)
+    view = base[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 1 and view.is_contiguous()
+    return view
+
+
+def _both_exact(x):
+    """The equalize on the NHWC batch ``x`` and the histogram on its first
+    channel, each one launch and bit-exact against its plain version (the
+    histogram also against np.bincount)."""
+    planes = x[..., 0].contiguous() if x.shape[-1] > 1 else x[..., 0]
+    before = dict(kernels.LAUNCHES)
+    eq, hist = image.equalize_uint8(x), image.histogram256(planes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["equalize_uint8"] == before["equalize_uint8"] + 1
+    assert kernels.LAUNCHES["histogram256"] == before["histogram256"] + 1
+    assert torch.equal(eq, image.equalize_uint8_ref(x))
+    assert torch.equal(hist, image.histogram256_ref(planes))
+    ref = np.stack([np.bincount(p.ravel(), minlength=256)
+                    for p in planes.cpu().numpy()])
+    np.testing.assert_array_equal(hist.cpu().numpy(), ref)
+    return eq, hist
+
+
+# the benchmark's cold shape; N = 1; hw off multiples of 16 (250^2 = 62,500
+# and 7 x 9); an image too large to keep its slices in shared memory; c = 3
+# at 256^2; 70,000 tiny images (past the old 65,535-image grid limit)
+CLUSTER_SHAPES = [(64, 512, 512, 1), (1, 256, 256, 1), (2, 250, 250, 1),
+                  (3, 7, 9, 1), (1, 2048, 2048, 1), (2, 256, 256, 3),
+                  (70000, 8, 8, 1)]
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("family", ["random", "constant", "generator_like"])
+def test_cluster_kernels_exact_across_shapes(dev, shape, family):
+    if family == "random":
+        x = _random_u8(shape, dev)
+    elif family == "constant":
+        x = torch.full(shape, 201, device=dev, dtype=torch.uint8)
+    else:
+        g = torch.Generator(device=dev).manual_seed(2)
+        f = torch.tanh(torch.randn(shape, generator=g, device=dev))
+        x = image.to_uint8(image.minmax_normalize(f))
+    _both_exact(x)
+
+
+def test_cluster_kernels_plan_keeps_or_streams_the_slice(dev):
+    assert image.hist256_plan(64, 512 * 512, 1, True).keep
+    assert not image.hist256_plan(1, 2048 * 2048, 1, True).keep
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 256, 1), (2, 250, 250, 1),
+                                   (2, 64, 48, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cluster_kernels_exact_on_unaligned_view(dev, shape):
+    x = _unaligned(_random_u8(shape, dev, seed=12))
+    _both_exact(x)
+
+
+def test_cluster_kernels_bit_identical_calls(dev):
+    x = _planes("generator_like", dev)
+    eq, hist = _both_exact(x)
+    for _ in range(3):
+        assert torch.equal(image.equalize_uint8(x), eq)
+        assert torch.equal(image.histogram256(x[..., 0]), hist)
 
 
 def _conv_close(x, w):

@@ -1,8 +1,9 @@
 """The port's 256-bin histogram against the JAX package's
 (``ops/pallas_kernels.py``): ``histogram256_ref`` bit for bit against
 ``histogram256_jnp``, against ``histogram256_pallas`` in interpret mode and
-against ``np.bincount``. On the CPU ``histogram256`` runs its plain version
-and counts no kernel launch."""
+against ``np.bincount``, including two-value images, H*W off multiples of
+16 and the channel planes of an RGB batch. On the CPU ``histogram256`` runs
+its plain version and counts no kernel launch."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +25,20 @@ def _images(family: str) -> np.ndarray:
         return np.full((2, 16, 16), 201, np.uint8)
     if family == "odd_size":            # H*W not a multiple of 4
         return rng.integers(0, 256, (2, 7, 9), dtype=np.uint8)
+    if family == "two_value":
+        return np.where(rng.random((2, 16, 16)) < 0.3, 10,
+                        200).astype(np.uint8)
+    if family == "odd_16":              # H*W = 65, not a multiple of 16
+        return rng.integers(0, 256, (3, 5, 13), dtype=np.uint8)
+    if family == "rgb_planes":          # c = 3: each channel plane an image
+        rgb = rng.integers(0, 256, (2, 16, 8, 3), dtype=np.uint8)
+        return np.ascontiguousarray(rgb.transpose(0, 3, 1, 2).reshape(
+            6, 16, 8))
     raise KeyError(family)
 
 
-FAMILIES = ("random_3x32", "random_2x16", "constant", "odd_size")
+FAMILIES = ("random_3x32", "random_2x16", "constant", "odd_size",
+            "two_value", "odd_16", "rgb_planes")
 
 
 def _bincount(x: np.ndarray) -> np.ndarray:
@@ -49,7 +60,8 @@ def test_histogram_ref_bit_exact_against_jnp_and_numpy(family):
     assert kernels.LAUNCHES["histogram256"] == 0
 
 
-@pytest.mark.parametrize("family", ["random_2x16", "constant"])
+@pytest.mark.parametrize("family", ["random_2x16", "constant", "two_value",
+                                    "odd_16", "rgb_planes"])
 def test_histogram_ref_bit_exact_against_pallas_interpret(family):
     x = _images(family)
     ref = np.asarray(histogram256_pallas(jnp.asarray(x), interpret=True))

@@ -1,13 +1,16 @@
 """The port's uint8 image ops against the JAX package's (ops/image.py), bit
-for bit: the plain equalize, to_uint8, adjust_gamma on all 256 levels, the
-whole fake-image chain and the threshold, on random, constant and two-value
-planes. On the CPU ``equalize_uint8`` runs its plain PyTorch version."""
+for bit: the plain equalize (also against ``equalize_uint8_pallas`` in
+interpret mode), to_uint8, adjust_gamma on all 256 levels, the whole
+fake-image chain and the threshold, on random, constant and two-value
+planes, at c = 1 and 3 and at H*W off multiples of 16. On the CPU
+``equalize_uint8`` runs its plain PyTorch version."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from semantic_segmentation_tpu.ops import image as jimg
+from semantic_segmentation_tpu.ops.pallas_kernels import equalize_uint8_pallas
 from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.ops import image as timg
 
@@ -29,11 +32,18 @@ def _plane_family(name: str) -> np.ndarray:
         x = np.full((1, 16, 16, 1), 5, np.uint8)
         x[0, 3, 4, 0] = 250
         return x
+    if name == "two_value_3ch":
+        return np.where(rng.random((2, 16, 16, 3)) < 0.3, 10,
+                        200).astype(np.uint8)
+    if name == "odd_hw":                # H*W = 63, not a multiple of 16
+        return rng.integers(0, 256, (3, 7, 9, 1), dtype=np.uint8)
+    if name == "odd_hw_3ch":            # H*W*C = 195
+        return rng.integers(0, 256, (2, 5, 13, 3), dtype=np.uint8)
     raise KeyError(name)
 
 
 FAMILIES = ("random", "random_3ch", "narrow", "constant", "two_value",
-            "one_outlier")
+            "one_outlier", "two_value_3ch", "odd_hw", "odd_hw_3ch")
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -46,6 +56,17 @@ def test_equalize_bit_exact(family):
     np.testing.assert_array_equal(out.numpy(), ref)
     # a CPU tensor takes the plain version: no kernel launch is counted
     assert kernels.LAUNCHES["equalize_uint8"] == 0
+
+
+@pytest.mark.parametrize("family", ["random_3ch", "two_value_3ch", "odd_hw",
+                                    "odd_hw_3ch"])
+def test_equalize_bit_exact_against_pallas_interpret(family):
+    x = _plane_family(family)
+    ref = np.stack([np.asarray(equalize_uint8_pallas(
+        jnp.asarray(x[..., ch]), interpret=True))
+        for ch in range(x.shape[-1])], axis=-1)
+    out = timg.equalize_uint8(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(out, ref)
 
 
 @pytest.mark.parametrize("gamma", [0.5, 0.7, 1.5])
