@@ -28,20 +28,30 @@ Phases, each of which stops the script with a nonzero exit on failure:
 4. the fake branch in context: warp -> threshold -> G -> min-max -> uint8 ->
    equalize -> gamma through the kernels and through the plain versions
    gives identical images;
-5. the engine on the card against the engine on the CPU: three
-   ``decay_only`` iterations at 32^2 in float32 from the same seed,
-   batches and augment matrices; losses within rtol 1e-3, arch tables
-   within 1e-6;
+5. the engine on the card against the engine on the CPU: three iterations
+   at 32^2 in float32 from the same seed, batches and augment matrices, in
+   each of ``decay_only``, ``darts`` (the reference wiring) and ``unroll``
+   (``end2end_nas``); losses within rtol 1e-3, arch tables within 1e-6
+   (1e-5 for ``unroll``); the darts hypergradient exactly 0 on both
+   devices and its arch tables equal to ``decay_only``'s, the unroll one
+   finite and > 0;
 6. the stage-1 trainer: ``train_pix2pix.train()`` of the pix2pix_jsrt
    preset at full width (256^2, batch 2, unet_256, ngf = ndf = 64, bf16
    autocast, synthetic data) for 20 steps; finite losses, the two
    checkpoint files written, no kernel launched (the path has none);
 7. the flagship trainer from that checkpoint: ``--run.pretrained_pix2pix``
    gives G, D and the arch tables the saved values at the start; then
-   ``train()`` of the end2end_jsrt preset at full width (U-Net base 64)
-   for 20 iterations with valid_step 10; finite losses, best_val and test
-   Dice produced, and the warp and the equalize launched once per unet
-   inner step, the histogram and the down-conv never;
+   ``train()`` at full width (U-Net base 64), 20 iterations with
+   valid_step 10 (one steady chunk), in three modes, each path's launch
+   counts zeroed before it and read after: the end2end_jsrt preset
+   (``decay_only``: the warp and the equalize once per iteration), the
+   same with ``--engine.hypergrad=darts`` (unroll and replay: each twice
+   per iteration; the hypergradient exactly 0 on every chunk) and the
+   end2end_nas preset (``unroll``, ``minmax``, live fakes: the warp three
+   times per iteration with the surrogate's, the equalize never; the
+   hypergradient finite and > 0 on every chunk); finite losses, best_val
+   and test Dice produced, the histogram and the down-conv never launched,
+   and steady it/s and peak memory printed for each;
 8. timing, after the trainers so that the profiler cannot slow them: the
    warp's and the equalize's device time (torch.profiler) and wrapper call
    time (CUDA events) on the inputs of phase 3, beside their plain
@@ -70,7 +80,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TRAIN_ITERS, VALID_STEP, PIX2PIX_STEPS = 20, 10, 20
+TRAIN_ITERS, MODE_ITERS, VALID_STEP, PIX2PIX_STEPS = 20, 20, 10, 20
 SAVE_DIR = ROOT / "build" / "chip_smoke_run"
 
 
@@ -342,12 +352,18 @@ SMALL_ARGV = ["--data.synthetic=true", "--data.image_size=32",
               "--model.ngf=8", "--model.ndf=8", "--model.base_features=8"]
 
 
-def phase_small_engine(torch, devices=("cpu", "cuda"), iters: int = 3):
-    """Three ``decay_only`` engine iterations at 32^2 in float32, on the
-    card and on the CPU (where every op takes its plain path, the path the
-    CPU tests hold against the JAX package), from the same seed, batches
-    and augment matrices. Losses agree within rtol 1e-3 (the uint8 chain
-    may move a quantisation level), the arch tables within 1e-6."""
+SMALL_MODES = {   # label: (extra argv, preset, arch tolerance card vs CPU)
+    "decay_only": ([], "end2end_jsrt", 1e-6),
+    "darts": (["--engine.hypergrad=darts"], "end2end_jsrt", 1e-6),
+    "unroll": ([], "end2end_nas", 1e-5),
+}
+
+
+def _small_engine_run(torch, dev, argv, preset, iters):
+    """``iters`` engine iterations at 32^2 on ``dev``: the index streams of
+    the trainer, and augment matrices drawn on the CPU from one seed for
+    every phase (unroll, hypergradient, replay), the same for every mode.
+    Returns (metrics per iteration, arch tables on the CPU)."""
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.data.pipeline import (
         epoch_index_batches, take_batch, to_device_split)
@@ -355,37 +371,74 @@ def phase_small_engine(torch, devices=("cpu", "cuda"), iters: int = 3):
     from semantic_segmentation_torch.train.common import load_splits
     from semantic_segmentation_torch.train.train_end2end import (PROBLEMS,
                                                                  build_engine)
-    cfg = parse_config(SMALL_ARGV, preset="end2end_jsrt")
+    cfg = parse_config(SMALL_ARGV + argv, preset=preset)
     splits = load_splits(cfg)
     bs, size = cfg.data.batch_size, cfg.data.image_size
-    runs = []
-    for dev in devices:
-        engine, p2p, _ = build_engine(cfg, dev)
-        data = to_device_split(splits["train"], dev)
-        streams = {n: epoch_index_batches(cfg.data.n_train, bs,
-                                          seed=cfg.run.seed * 7 + i)
-                   for i, n in enumerate(PROBLEMS)}
-        gen = torch.Generator().manual_seed(11)
-        losses = []
-        for _ in range(iters):
-            mats = sample_affine_batch(bs, size, size, gen).to(dev)
-            m = engine.engine_step(
-                [{n: take_batch(data, next(s)) for n, s in streams.items()}],
-                [{"unet": {"affine": mats}}])
-            losses.append({k: float(v) for k, v in m.items()})
-        runs.append((losses, {k: v.cpu() for k, v in p2p.arch.items()}))
-    (ref, arch_ref), (got, arch_got) = runs
-    worst = max(abs(g[k] - r[k]) / abs(r[k])
-                for r, g in zip(ref, got) for k in r)
-    check(all(math.isfinite(v) for g in got for v in g.values()),
-          f"small engine: losses not finite: {got}")
-    check(worst < 1e-3, f"small engine: losses {got} against {ref}")
-    arch_err = max((arch_got[k] - arch_ref[k]).abs().max().item()
-                   for k in arch_ref)
-    check(arch_err < 1e-6, f"small engine: arch tables differ by {arch_err}")
-    print(f"[small engine] {iters} iterations at {size}^2 f32, "
-          f"{devices[1]} against {devices[0]}: largest relative loss gap "
-          f"{worst:.3e}, arch max |err| {arch_err:.3e}")
+    engine, p2p, _ = build_engine(cfg, dev)
+    data = to_device_split(splits["train"], dev)
+    val = to_device_split(splits["val"], dev)
+    streams = {n: epoch_index_batches(cfg.data.n_train, bs,
+                                      seed=cfg.run.seed * 7 + i)
+               for i, n in enumerate(PROBLEMS)}
+    val_stream = epoch_index_batches(cfg.data.n_val, bs,
+                                     seed=cfg.run.seed + 99)
+    gen = torch.Generator().manual_seed(11)
+    out = []
+    for _ in range(iters):
+        draws = {ph: [{"unet": {"affine": sample_affine_batch(
+            bs, size, size, gen).to(dev)}}]
+            for ph in ("unroll", "hyper", "replay")}
+        m = engine.engine_step(
+            [{n: take_batch(data, next(s)) for n, s in streams.items()}],
+            take_batch(val, next(val_stream)), draws)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, {k: v.cpu() for k, v in p2p.arch.items()}
+
+
+def phase_small_engine(torch, devices=("cpu", "cuda"), iters: int = 3):
+    """Three engine iterations at 32^2 in float32 in each of ``decay_only``,
+    ``darts`` (the reference wiring) and ``unroll`` (``end2end_nas``), on the
+    card and on the CPU (where every op takes its plain path, the path the
+    CPU tests hold against the JAX package), from the same seed, batches and
+    augment matrices. Losses agree within rtol 1e-3 (the uint8 chain may
+    move a quantisation level), the arch tables within 1e-6 (1e-5 for
+    ``unroll``, whose hypergradient differs in f32 noise between the
+    devices). ``darts``' hypergradient is exactly 0 on both devices and its
+    arch tables equal ``decay_only``'s; ``unroll``'s norm is finite and
+    > 0."""
+    arch_by_mode = {}
+    for label, (argv, preset, tol) in SMALL_MODES.items():
+        (ref, arch_ref), (got, arch_got) = [
+            _small_engine_run(torch, dev, argv, preset, iters)
+            for dev in devices]
+        losses = [k for k in ref[0] if k.startswith(("loss_", "replay_loss_",
+                                                     "outer_loss"))]
+        check(all(math.isfinite(v) for g in got for v in g.values()),
+              f"small engine {label}: metrics not finite: {got}")
+        worst = max(abs(g[k] - r[k]) / abs(r[k])
+                    for r, g in zip(ref, got) for k in losses)
+        check(worst < 1e-3, f"small engine {label}: losses {got} against "
+              f"{ref}")
+        arch_err = max((arch_got[k] - arch_ref[k]).abs().max().item()
+                       for k in arch_ref)
+        check(arch_err < tol, f"small engine {label}: arch tables differ by "
+              f"{arch_err}")
+        norms = [m["arch_grad_norm"] for m in ref + got]
+        if label == "darts":
+            check(all(n == 0.0 for n in norms),
+                  f"small engine darts: hypergradient not exactly 0: {norms}")
+        if label == "unroll":
+            check(all(n > 0.0 for n in norms),
+                  f"small engine unroll: hypergradient norms {norms}")
+        arch_by_mode[label] = arch_got
+        print(f"[small engine] {label}: {iters} iterations at 32^2 f32, "
+              f"{devices[1]} against {devices[0]}: largest relative loss gap "
+              f"{worst:.3e}, arch max |err| {arch_err:.3e}, arch_grad_norm "
+              f"{[f'{n:.3e}' for n in norms]}")
+    same = all(torch.equal(arch_by_mode["darts"][k], arch_by_mode[
+        "decay_only"][k]) for k in arch_by_mode["darts"])
+    check(same, "small engine: darts' arch tables differ from decay_only's")
+    print("[small engine] darts' arch tables on the card equal decay_only's")
 
 
 def phase_pix2pix(torch):
@@ -427,24 +480,25 @@ def phase_pix2pix(torch):
             "launches": launches}, ckpt
 
 
-def phase_trainer(torch, ckpt):
-    """The flagship trainer at full width, started from the stage-1
-    checkpoint ``ckpt``."""
-    from semantic_segmentation_torch import kernels
+# the flagship trainer's paths: label -> (preset, extra argv, iterations,
+# warp and equalize launches per unet inner step of the K unroll steps)
+TRAINERS = {
+    "end2end_trainer": ("end2end_jsrt", [], TRAIN_ITERS, 1, 1),
+    "darts_trainer": ("end2end_jsrt", ["--engine.hypergrad=darts"],
+                      MODE_ITERS, 2, 2),
+    "nas_trainer": ("end2end_nas", [], MODE_ITERS, 3, 0),
+}
+
+
+def check_start(torch, ckpt):
+    """The engine ``train()`` builds starts from the saved G, D and arch
+    tables of the stage-1 checkpoint ``ckpt``."""
     from semantic_segmentation_torch.core.config import parse_config
-    from semantic_segmentation_torch.train.train_end2end import (build_engine,
-                                                                 train)
+    from semantic_segmentation_torch.train.train_end2end import build_engine
     from semantic_segmentation_torch.train.train_pix2pix import GENERATOR_FILE
     cfg = parse_config(["--data.synthetic=true",
-                        f"--engine.valid_step={VALID_STEP}",
-                        f"--run.pretrained_pix2pix={ckpt}",
-                        f"--run.save_dir={SAVE_DIR}"], preset="end2end_jsrt")
-    m = cfg.model
-    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
-           m.base_features, m.compute_dtype) ==
-          (256, 2, "unet_256", 64, 64, 64, "bfloat16"),
-          "trainer: not the full-width end2end_jsrt configuration")
-    # the engine train() builds starts from the saved G, D and arch tables
+                        f"--run.pretrained_pix2pix={ckpt}"],
+                       preset="end2end_jsrt")
     engine, p2p, seg = build_engine(cfg, "cuda")
     saved = torch.load(ckpt / GENERATOR_FILE, map_location="cuda",
                        weights_only=True)
@@ -457,35 +511,70 @@ def phase_trainer(torch, ckpt):
     torch.cuda.empty_cache()
     print(f"[trainer] G and the arch tables start from {ckpt}")
 
+
+def phase_trainer(torch, ckpt, label: str):
+    """The flagship trainer at full width in the mode of ``TRAINERS[label]``,
+    started from the stage-1 checkpoint ``ckpt``: finite losses, best_val
+    and test Dice produced, the warp and the equalize launched as the mode
+    runs the unet problem, the histogram and the down-conv never; the
+    darts hypergradient exactly 0 (the reference wiring's structural zero),
+    the unroll one finite and > 0, on every logged chunk."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train.train_end2end import train
+    preset, argv, iters, warps, equalizes = TRAINERS[label]
+    cfg = parse_config(["--data.synthetic=true",
+                        f"--engine.valid_step={VALID_STEP}",
+                        f"--run.pretrained_pix2pix={ckpt}",
+                        f"--run.save_dir={SAVE_DIR}"] + argv, preset=preset)
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.base_features, m.compute_dtype) ==
+          (256, 2, "unet_256", 64, 64, 64, "bfloat16"),
+          f"{label}: not the full-width {preset} configuration")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    engine, results = train(cfg, train_iters=TRAIN_ITERS, device="cuda")
+    engine, results = train(cfg, train_iters=iters, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    unet_steps = TRAIN_ITERS * cfg.engine.unroll_steps
-    check(launches == {"warp_affine": unet_steps,
-                       "equalize_uint8": unet_steps,
-                       "histogram256": 0, "conv_down4": 0},
-          f"trainer: launches {launches} != {unet_steps} unet inner steps")
+    unet_steps = iters * cfg.engine.unroll_steps
+    want = {"warp_affine": warps * unet_steps,
+            "equalize_uint8": equalizes * unet_steps,
+            "histogram256": 0, "conv_down4": 0}
+    check(launches == want, f"{label}: launches {launches}, not {want} "
+          f"({unet_steps} unet inner steps, hypergrad "
+          f"{cfg.engine.hypergrad})")
     for c in results["chunks"]:
         for k in ("loss_netG", "loss_netD", "loss_unet", "val_score"):
-            check(math.isfinite(c[k]), f"trainer: {k} not finite: {c}")
+            check(math.isfinite(c[k]), f"{label}: {k} not finite: {c}")
+        if cfg.engine.hypergrad == "darts":
+            check(c["arch_grad_norm"] == 0.0,
+                  f"{label}: darts hypergradient not exactly 0: {c}")
+        if cfg.engine.hypergrad == "unroll":
+            check(math.isfinite(c["arch_grad_norm"])
+                  and c["arch_grad_norm"] > 0.0,
+                  f"{label}: unroll hypergradient norm {c}")
     check(math.isfinite(results["best_val"]) and "test_dice" in results
           and math.isfinite(results["test_dice"]),
-          f"trainer: no best_val/test_dice: {results}")
+          f"{label}: no best_val/test_dice: {results}")
     steady = results["chunks"][1:]
     its = sum(c["iters"] for c in steady) / sum(c["seconds"] for c in steady)
-    stats = {"iters": TRAIN_ITERS, "wall_s": wall,
+    keys = ("loss_netG", "loss_netD", "loss_unet", "outer_loss",
+            "arch_grad_norm")
+    stats = {"preset": preset, "hypergrad": cfg.engine.hypergrad,
+             "iters": iters, "wall_s": wall,
              "first_chunk_s": results["chunks"][0]["seconds"],
              "steady_it_per_s": its, "steady_iter_ms": 1e3 / its,
              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
              "best_val": results["best_val"],
              "test_dice": results["test_dice"],
-             "last_losses": {k: results["chunks"][-1][k] for k in
-                             ("loss_netG", "loss_netD", "loss_unet")},
+             "last_metrics": {k: results["chunks"][-1][k] for k in keys
+                              if k in results["chunks"][-1]},
              "launches": launches}
+    del engine
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -621,13 +710,15 @@ def main() -> int:
     p2p_stats, ckpt = phase_pix2pix(torch)
     print(f"[pix2pix] {card}: " + json.dumps(p2p_stats))
     torch.cuda.empty_cache()
-    stats = phase_trainer(torch, ckpt)
-    print(f"[trainer] {card}: " + json.dumps(stats))
+    check_start(torch, ckpt)
+    paths = {"pix2pix_trainer": p2p_stats["launches"]}
+    for label in TRAINERS:
+        stats = phase_trainer(torch, ckpt, label)
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        paths[label] = stats["launches"]
 
     # 8. timing and the benchmark paths
     phase_timing(records, timers)
-    paths = {"pix2pix_trainer": p2p_stats["launches"],
-             "end2end_trainer": stats["launches"]}
     paths.update(phase_benches(torch, records, gen_img))
     main_path = {"warp_affine": "end2end_trainer",
                  "equalize_uint8": "end2end_trainer",

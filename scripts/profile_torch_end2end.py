@@ -2,11 +2,13 @@
 """Where the PyTorch port's flagship engine iteration spends its time on
 the GPU.
 
-    python3 scripts/profile_torch_end2end.py [--iters 30] [--profile-iters 5]
+    python3 scripts/profile_torch_end2end.py [--preset end2end_jsrt]
+        [--hypergrad darts] [--iters 30] [--profile-iters 5]
         [--out build/profile_torch_end2end.json]
 
-Builds the ``end2end_jsrt`` engine of ``semantic_segmentation_torch`` at full
-width (256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base 64, bf16
+Builds the engine of ``--preset`` (``end2end_jsrt`` or ``end2end_nas``; its
+hypergradient mode, or ``--hypergrad``) of ``semantic_segmentation_torch``
+at full width (256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base 64, bf16
 autocast, synthetic data), warms it up, times ``--iters`` engine iterations
 (host clock, ending in a device sync), then traces ``--profile-iters`` more
 with ``torch.profiler`` and reports: device busy and idle share of the
@@ -64,6 +66,11 @@ def union_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="end2end_jsrt",
+                    choices=("end2end_jsrt", "end2end_nas"))
+    ap.add_argument("--hypergrad", default=None,
+                    choices=("darts", "unroll", "decay_only", "none"),
+                    help="default: the preset's")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--profile-iters", type=int, default=5)
     ap.add_argument("--out", type=Path,
@@ -75,7 +82,7 @@ def main() -> int:
         print("profile_torch_end2end: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.data.pipeline import (
@@ -87,19 +94,27 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
-    cfg = parse_config(["--data.synthetic=true"], preset="end2end_jsrt")
+    argv = ["--data.synthetic=true"]
+    if args.hypergrad:
+        argv.append(f"--engine.hypergrad={args.hypergrad}")
+    cfg = parse_config(argv, preset=args.preset)
     dev = torch.device("cuda")
     engine, _, _ = build_engine(cfg, dev)
     splits = load_splits(cfg)
     train_dev = to_device_split(splits["train"], dev)
+    val_dev = to_device_split(splits["val"], dev)
     n_train = len(splits["train"]["image"])
     streams = {n: epoch_index_batches(n_train, cfg.data.batch_size,
                                       seed=cfg.run.seed * 7 + i)
                for i, n in enumerate(PROBLEMS)}
+    val_stream = epoch_index_batches(len(splits["val"]["image"]),
+                                     cfg.data.batch_size,
+                                     seed=cfg.run.seed + 99)
 
     def step():
         return engine.engine_step([{n: take_batch(train_dev, next(s))
-                                    for n, s in streams.items()}])
+                                    for n, s in streams.items()}],
+                                  take_batch(val_dev, next(val_stream)))
 
     for _ in range(5):
         step()
@@ -111,11 +126,16 @@ def main() -> int:
     host_s = time.perf_counter() - t0
     losses = {k: float(v) for k, v in metrics.items()}
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.profile_iters):
-            step()
-        torch.cuda.synchronize()
+    # one engine iteration in the profiler's warm-up step, which keeps
+    # nothing: the profiler can drop kernels near the start of a trace
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for n in (1, args.profile_iters):
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            prof.step()
     # device work only: the optimizers' user annotations also sit on the
     # device timeline, spanning their kernels and the gaps between them
     kernels = [e for e in prof.events()
@@ -138,8 +158,10 @@ def main() -> int:
     P = args.profile_iters
     report = {
         "card": card, "torch": torch.__version__,
-        "config": "end2end_jsrt, 256^2, batch 2, unet_256, ngf=ndf=64, "
-                  "U-Net base 64, bf16 autocast, synthetic",
+        "config": f"{args.preset}, hypergrad {cfg.engine.hypergrad}, 256^2, "
+                  "batch 2, unet_256, ngf=ndf=64, U-Net base 64, bf16 "
+                  "autocast, synthetic",
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "timed_iters": args.iters,
         "host_it_per_s": args.iters / host_s,
         "host_iter_ms": 1e3 * host_s / args.iters,
@@ -169,7 +191,7 @@ def main() -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(report, indent=1))
     summary = {k: report[k] for k in (
-        "card", "host_it_per_s", "host_iter_ms", "device_busy_ms_per_iter",
+        "card", "config", "peak_mem_bytes", "host_it_per_s", "host_iter_ms", "device_busy_ms_per_iter",
         "device_window_ms_per_iter", "device_idle_share",
         "device_idle_share_untraced",
         "kernel_launches_per_iter", "kernel_ms_per_iter_by_category",

@@ -51,8 +51,44 @@ def time_ms(fn, iters: int) -> float:
 
 FLUSH_BYTES = 96 << 20          # written between cold launches: > 50 MB L2
 FLUSH_KERNEL = "bitwise_not"    # the flush's kernel, left out of the sums
-TRACES = 8                      # profiler traces device_ms takes at most
+TRACES = 16                     # profiler traces device_ms takes at most
+WARMUP_CALLS = 3                # calls in a trace's warm-up step
+STEP_MARGIN_S = 0.01            # idle host time at each end of a step
 _flush_buf: list = []
+
+
+def _device_kernels(calls):
+    """(the device kernels of ``calls()`` in start order, the kernel
+    launches the host made), from a torch.profiler trace whose warm-up
+    step runs ``calls`` too and keeps nothing. In long-lived processes on
+    the H100 the profiler dropped device events of some traces: part or
+    all of them, at times the first 4 or 5 of 30 in every trace of one
+    call, and a device timestamp once fell 159 us before its launch on the
+    host's clock. So each step leaves ``STEP_MARGIN_S`` of idle time at
+    both ends, that a kernel near a step's edge is not cut by an error in
+    the clocks' alignment, and the launches on the host's side of the same
+    trace say how many kernels there were."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(STEP_MARGIN_S)
+            calls()
+            torch.cuda.synchronize()
+            time.sleep(STEP_MARGIN_S)
+            prof.step()
+    events = prof.events()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+    launches = sum(e.device_type != torch.autograd.DeviceType.CUDA
+                   and "LaunchKernel" in e.name for e in events)
+    return kernels, launches
 
 
 def flush_l2():
@@ -73,32 +109,30 @@ def device_ms(fn, iters: int, kernel: str | None = None,
     back to back, their inputs in L2. ``cold``: ``flush_l2`` runs before
     each call and its kernel is left out of the sum; the flushes divide the
     trace into calls, and the mean is over the calls the trace holds whole.
-    The profiler now and then records no device activity, or drops a call's
-    events: a trace that holds less than 90% of the calls (warm with
-    ``kernel``: of the kernels; warm without: any kernel) is taken again,
-    after one more untimed call, up to ``TRACES`` times in all. Raises
-    RuntimeError, with what the last trace held, when none does: a number
-    returned here is always the profiler's device time."""
+    Each trace starts with a warm-up step (``_device_kernels``). The
+    profiler now and then records no device activity, or drops a call's
+    events: a trace that holds less than 90% of the kernels the host
+    launched, or of the calls (warm with ``kernel``: of the kernels), is
+    taken again, after one more untimed call, up to ``TRACES`` times in
+    all. Raises RuntimeError, with what the last trace held, when none
+    does: a number returned here is always the profiler's device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    def run(n):
+        for _ in range(n):
+            if cold:
+                flush_l2()
+            fn()
+
     for _ in range(3):
         fn()
     for _ in range(TRACES):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                if cold:
-                    flush_l2()
-                fn()
-            torch.cuda.synchronize()
-        kernels = sorted(
-            (e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)),
-            key=lambda e: e.time_range.start)
-        flushes = sum(FLUSH_KERNEL in e.name for e in kernels)
+        warm = iter((WARMUP_CALLS, iters))
+        kernels, launches = _device_kernels(lambda: run(next(warm)))
+        if len(kernels) < 0.9 * launches:
+            continue
         spans = [e.time_range.end - e.time_range.start for e in kernels
                  if FLUSH_KERNEL not in e.name
                  and (kernel is None or kernel in e.name)]
@@ -123,28 +157,22 @@ def device_ms(fn, iters: int, kernel: str | None = None,
     raise RuntimeError(
         f"device_ms: {TRACES} profiler traces without 90% of {iters} "
         f"{'cold ' if cold else ''}calls{' of ' + kernel if kernel else ''} "
-        f"(the last: {len(spans)} kernels, {flushes} flushes, names {names})")
+        f"(the last: {len(kernels)} of {launches} launched kernels, names "
+        f"{names})")
 
 
 def call_kernels(fn) -> list[str]:
     """The names of the device kernels one call of ``fn`` launches, in
-    order (torch.profiler, after a warm-up call). A trace with no device
-    activity is taken again, up to three times in all."""
+    order (torch.profiler, after a warm-up call and a warm-up step). A trace
+    that holds fewer kernels than the host launched is taken again, up to
+    three times in all."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     names = []
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in sorted(
-            (e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)),
-            key=lambda e: e.time_range.start)]
-        if names:
+        kernels, launches = _device_kernels(fn)
+        names = [e.name for e in kernels]
+        if names and len(names) >= launches:
             break
     return names

@@ -4,11 +4,12 @@ The port's own copy of ``semantic_segmentation_tpu/core/config.py``, with
 the same sections, field names and defaults, so one command line means the
 same run on both packages. It holds only the fields and presets the port
 uses, plus ``run.device``: an option of the JAX package that the port does
-not implement yet (folder datasets, checkpointing, wandb, other init laws,
-the darts settings) is refused, not ignored.
+not implement yet (folder datasets, checkpointing, wandb, other init laws)
+is refused, not ignored.
 
 CLI: ``--section.field=value`` overrides any leaf (parsed with the field's
-type); ``--preset=name`` applies a named preset first.
+type; a tuple field splits on commas); ``--preset=name`` applies a named
+preset first.
 """
 
 from __future__ import annotations
@@ -77,9 +78,13 @@ class EngineConfig:
     unroll_steps: int = 1
     valid_step: int = 10
     roll_back: bool = True
-    hypergrad: str = "darts"         # decay_only | none here; darts/unroll later
-    detach_fakes: bool = True
-    fake_postprocess: str = "uint8_chain"
+    hypergrad: str = "darts"         # darts | unroll | decay_only | none
+    darts_epsilon: float = 0.01      # finite-difference r / ||v||
+    detach_fakes: bool = True        # reference detaches G(fakes) in unet step
+    fake_postprocess: str = "uint8_chain"  # uint8_chain | minmax
+    # darts children of the arch problem (Betty u2l edges); the reference
+    # wiring's ('netG',) makes the darts hypergradient structurally zero
+    arch_children: tuple = ("netG",)
 
 
 @dataclass
@@ -113,6 +118,12 @@ PRESETS: dict[str, dict[str, Any]] = {
     "pix2pix_jsrt": {"optim.lr": 2e-5, "engine.train_iters": 8000,
                      "data.n_train": 80, "data.n_val": 20, "data.n_test": 0,
                      "run.name": "pix2pix-JSRT"},
+    # live architecture search: the exact unrolled hypergradient through the
+    # generator into the arch tables
+    "end2end_nas": {"engine.hypergrad": "unroll",
+                    "engine.detach_fakes": False,
+                    "engine.fake_postprocess": "minmax",
+                    "run.name": "end2end-JSRT-9-nas"},
 }
 
 
@@ -126,8 +137,12 @@ def _set_by_path(cfg: Config, path: str, raw: str | Any):
     value = raw
     if isinstance(raw, str):            # parsed with the field's type
         current = getattr(obj, leaf)
-        value = (raw.lower() in ("1", "true", "yes")
-                 if isinstance(current, bool) else type(current)(raw))
+        if isinstance(current, bool):
+            value = raw.lower() in ("1", "true", "yes")
+        elif isinstance(current, tuple):
+            value = tuple(x for x in raw.split(",") if x)
+        else:
+            value = type(current)(raw)
     setattr(obj, leaf, value)
 
 

@@ -21,26 +21,17 @@ import contextlib
 from functools import cached_property
 
 import torch
-from torch.func import functional_call
 
 from semantic_segmentation_torch.core.optim import adam_torch
 from semantic_segmentation_torch.models.pix2pix.networks import (define_D,
                                                                  define_G)
 from semantic_segmentation_torch.ops import nas
+from semantic_segmentation_torch.ops.layers import call_module
 from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 
 
 def _nchw(x):
     return x.permute(0, 3, 1, 2)
-
-
-def _call(module, args, keep_stats: bool):
-    """``module(*args)``; with ``keep_stats`` False the forward's BN updates
-    go to scratch copies of the buffers, which are dropped."""
-    if keep_stats:
-        return module(*args)
-    scratch = {k: b.clone() for k, b in module.named_buffers()}
-    return functional_call(module, scratch, args)
 
 
 class Pix2Pix:
@@ -84,18 +75,22 @@ class Pix2Pix:
     # -- forward helpers ------------------------------------------------
     def g_apply(self, mask, arch_upconv, train: bool, dropout_masks=None,
                 generator: torch.Generator | None = None,
-                keep_stats: bool = True):
+                keep_stats: bool = True, params=None):
         """G on an NCHW mask; train mode updates G's BN stats (scratch
-        copies of them with ``keep_stats`` False)."""
+        copies of them with ``keep_stats`` False or ``params`` given, which
+        replaces G's parameters)."""
         self.G.train(train)
-        return _call(self.G, (mask, arch_upconv, dropout_masks, generator),
-                     keep_stats)
+        return call_module(self.G,
+                           (mask, arch_upconv, dropout_masks, generator),
+                           keep_stats, params)
 
-    def d_apply(self, pair, train: bool, keep_stats: bool = True):
+    def d_apply(self, pair, train: bool, keep_stats: bool = True,
+                params=None):
         """D on an NCHW (mask, image) pair; train mode updates D's BN stats
-        (scratch copies of them with ``keep_stats`` False)."""
+        (scratch copies of them with ``keep_stats`` False or ``params``
+        given, which replaces D's parameters)."""
         self.D.train(train)
-        return _call(self.D, (pair,), keep_stats)
+        return call_module(self.D, (pair,), keep_stats, params)
 
     # -- problem losses (shared with the end-to-end engine) -------------
     def loss_G(self, mask, image, dropout_masks=None,

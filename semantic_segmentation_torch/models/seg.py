@@ -14,6 +14,7 @@ import torch
 from semantic_segmentation_torch.core.optim import rmsprop_torch
 from semantic_segmentation_torch.models.unet import UNet
 from semantic_segmentation_torch.ops import losses
+from semantic_segmentation_torch.ops.layers import call_module
 
 
 def seg_loss_fn(logits, masks, n_classes: int = 1, loss_type: str = "dice"):
@@ -47,10 +48,13 @@ class SegProblem:
     def make_opt(self):
         return rmsprop_torch(self.net.parameters(), self.lr)
 
-    def apply(self, images, train: bool):
-        """Logits of NCHW images; train mode updates the BN stats."""
+    def apply(self, images, train: bool, params=None,
+              keep_stats: bool = True):
+        """Logits of NCHW images; train mode updates the BN stats (scratch
+        copies of them with ``keep_stats`` False or ``params`` given, which
+        replaces the net's parameters)."""
         self.net.train(train)
-        return self.net(images)
+        return call_module(self.net, (images,), keep_stats, params)
 
     @torch.no_grad()
     def eval_logits(self, images):

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.kernels.build import launch
 
 
@@ -136,10 +137,11 @@ def warp_affine_batch_ref(imgs_nhwc, mats, cval: float = 0.0):
 def warp_affine_batch(imgs_nhwc, mats, cval: float = 0.0):
     """Bilinear warp of an NHWC float32 batch by per-image FORWARD affines
     (n, 3, 3). A CUDA tensor goes through the kernel; a CPU tensor through
-    ``warp_affine_batch_ref``."""
+    ``warp_affine_batch_ref``. Inputs that require grad are refused."""
     if imgs_nhwc.dim() != 4 or imgs_nhwc.dtype != torch.float32:
         raise ValueError(f"warp_affine_batch takes an NHWC float32 batch, "
                          f"got {imgs_nhwc.dtype} {tuple(imgs_nhwc.shape)}")
+    kernels.refuse_grad("warp_affine_batch", imgs_nhwc, mats)
     n, h, w, c = imgs_nhwc.shape
     if tuple(mats.shape) != (n, 3, 3) or mats.device != imgs_nhwc.device:
         raise ValueError(f"mats must be ({n}, 3, 3) on {imgs_nhwc.device}, "

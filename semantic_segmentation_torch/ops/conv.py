@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.kernels.build import launch
 
 SMS = 132                # streaming multiprocessors of an H100 SXM
@@ -156,7 +157,9 @@ def conv_down4_ref(x, w):
 def conv_down4(x, w):
     """k4-s2-p1 conv of an NHWC batch by an HWIO kernel, no bias. A CUDA
     tensor goes through the kernel (bf16 in and out, f32 accumulation); a
-    CPU tensor through ``conv_down4_ref``."""
+    CPU tensor through ``conv_down4_ref``. Inputs that require grad are
+    refused."""
+    kernels.refuse_grad("conv_down4", x, w)
     _check_shapes(x, w)
     if x.shape[-1] < 8:
         raise NotImplementedError(

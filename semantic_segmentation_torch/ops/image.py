@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.kernels.build import launch
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -217,7 +218,10 @@ def adjust_gamma_uint8(img_u8, gamma: float, gain: float = 1.0):
 def equalize_gamma_chain(x, gamma: float = 0.5):
     """The fake-image post-processing of the end-to-end unet step
     (``train_end2end_jsrt.py:197-200``): global min-max -> uint8 ->
-    equalize -> gamma -> back to [0, 1] float32. Input NHWC float."""
+    equalize -> gamma -> back to [0, 1] float32. Input NHWC float; an input
+    that requires grad is refused, since no gradient flows through the
+    integer ops (the equalize kernel's float entry)."""
+    kernels.refuse_grad("equalize_gamma_chain", x)
     u8 = to_uint8(minmax_normalize(x))
     u8 = adjust_gamma_uint8(equalize_uint8(u8), gamma)
     return u8.float() / 255.0

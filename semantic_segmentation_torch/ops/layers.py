@@ -7,6 +7,8 @@
   ``torch.nn.BatchNorm2d`` folds the unbiased one. At the generator's inner
   layers (2x2 maps at batch 2) the two differ by 8/7, which moves every
   eval-mode output.
+- ``call_module``: a forward on scratch BN buffers and, optionally, on
+  parameters that are not the module's own.
 - ``pad_to_match``: the U-Net skip-concat pad (``unet/unet_parts.py:59-63``).
 - init laws: pix2pix ``init_type='normal'`` (N(0, 0.02), BN scale
   N(1, 0.02), zero biases) and torch's kaiming-uniform with the fan-in the
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 
 
 class BatchNorm2d(nn.Module):
@@ -52,6 +55,22 @@ class BatchNorm2d(nn.Module):
         y = (x32 - mean[:, None, None]) * scale[:, None, None] \
             + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def call_module(module, args, keep_stats: bool = True, params=None):
+    """``module(*args)``; with ``keep_stats`` False the forward's BN updates
+    go to scratch copies of the buffers, which are dropped. ``params``
+    ({name: tensor}) replaces the module's parameters for this call (the
+    hypergradients' surrogate and shifted weights); the buffers are then
+    always scratch copies, so the real running statistics never change.
+    ``BatchNorm2d`` updates its buffers in place, and under
+    ``functional_call`` that write lands in the tensors passed."""
+    if keep_stats and params is None:
+        return module(*args)
+    tensors = {k: b.clone() for k, b in module.named_buffers()}
+    if params is not None:
+        tensors.update(params)
+    return functional_call(module, tensors, args)
 
 
 def pad_to_match(x_small, target_hw):

@@ -1,7 +1,7 @@
 """End-to-end GenSeg training, the flagship entry point — the port of
 ``semantic_segmentation_tpu/train/train_end2end.py``.
 
-The three inner Betty problems become loss closures over the shared nets:
+The four Betty problems become closures over the shared nets:
 
 - netG (:142-154): GAN(D(mask, G(mask)), True) + lambda_L1 * L1.
 - netD (:158-172): 0.5 * (fake + real) GAN loss; G runs in train mode under
@@ -9,23 +9,28 @@ The three inner Betty problems become loss closures over the shared nets:
   D twice with its stats threaded between the calls.
 - unet (:177-226), the hot loop: real loss (BCE + Dice) + loss_lambda * fake
   loss, the fake branch being augment(mask) [warp kernel] -> threshold 0.1
-  -> G -> min-max -> uint8 -> equalize [equalize kernel] -> gamma(0.5) ->
-  /255 -> U-Net. The U-Net runs twice, real branch then fake branch.
+  -> G -> post-process -> U-Net. The post-process is ``uint8_chain``
+  (min-max -> uint8 -> equalize [equalize kernel] -> gamma(0.5) -> /255,
+  the reference's) or ``minmax`` (differentiable, with ``detach_fakes``
+  False the live search's). The U-Net runs twice, real branch then fake.
+- arch (outer, :229-236): the U-Net's validation loss, read by the darts
+  and unroll hypergradients (not evaluated under ``decay_only``).
 
-The arch problem's outer loss is not evaluated under ``decay_only``; it
-comes with the darts/unroll hypergradients. Validation Dice every
-``valid_step``; best-val snapshot; ReduceLROnPlateau on the unet lr every
-len(train) steps; final test Dice; ``torch.save`` of the best U-Net.
+Validation Dice every ``valid_step``; best-val snapshot; ReduceLROnPlateau
+on the unet lr every len(train) steps; final test Dice; ``torch.save`` of
+the best U-Net.
 
 The public ops keep the JAX package's NHWC layout; the nets are NCHW. The
 closures permute at the boundary, a view at C = 1.
 
 Usage: ``python -m semantic_segmentation_torch.train.train_end2end
---preset=end2end_jsrt --data.synthetic=true [--run.device=cpu]``.
+--preset=end2end_jsrt --data.synthetic=true [--engine.hypergrad=darts]
+[--run.device=cpu]``; the live search: ``--preset=end2end_nas``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -46,6 +51,7 @@ from semantic_segmentation_torch.models.pix2pix.model import Pix2Pix
 from semantic_segmentation_torch.models.seg import SegProblem, seg_loss_fn
 from semantic_segmentation_torch.ops import image as iops
 from semantic_segmentation_torch.ops.augment import random_augment_batch
+from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 from semantic_segmentation_torch.ops.metrics import eval_batch_score
 from semantic_segmentation_torch.train.common import autocast_for, load_splits
 from semantic_segmentation_torch.train.train_pix2pix import (build_pix2pix,
@@ -64,61 +70,102 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
-                   generator: torch.Generator):
-    """The three inner GenSeg problems as engine closures. ``generator``
-    draws the augment affines and dropout masks not injected via ``draws``
-    ({'affine': (B, 3, 3)}, {'dropout': {depth: keep-mask}})."""
+def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp):
+    """The three inner GenSeg problems and the arch problem's outer loss as
+    engine closures. Returns (problems, outer_loss).
+
+    Each loss takes ``(batch, draws, params=None, generator=None)``
+    (``InnerProblem``): ``generator`` draws the augment affines and dropout
+    masks not injected via ``draws`` ({'affine': (B, 3, 3)}, {'dropout':
+    {depth: keep-mask}}); ``params`` ({problem name or 'arch': tensors})
+    runs each net it names on those weights instead of its module's, every
+    net then on scratch BN buffers (train_end2end.py:75-144 of the JAX
+    package reads ``state.params`` the same way)."""
     loss_lambda = cfg.optim.loss_lambda
     detach = cfg.engine.detach_fakes
-    if cfg.engine.fake_postprocess != "uint8_chain":
-        raise NotImplementedError(f"fake_postprocess="
-                                  f"{cfg.engine.fake_postprocess!r} is not "
+    postprocess = cfg.engine.fake_postprocess
+    if postprocess not in ("uint8_chain", "minmax"):
+        raise NotImplementedError(f"fake_postprocess={postprocess!r} is not "
                                   "ported yet")
-    arch = p2p.arch
 
-    def g_forward(mask, draws):
-        return p2p.g_apply(mask, arch["upconv"], True, draws.get("dropout"),
-                           generator)
+    def nets(params):
+        """(G, D, U-Net weights, arch tables, keep_stats) of one call: the
+        modules' own with their buffers, or ``params``' on scratch ones."""
+        if params is None:
+            return None, None, None, p2p.arch, True
+        return (params.get("netG"), params.get("netD"), params.get("unet"),
+                params.get("arch", p2p.arch), False)
 
-    def loss_netG(batch, draws):
+    def loss_netG(batch, draws, params=None, generator=None):
+        g, d, _, arch, keep = nets(params)
         mask = _nchw(batch["mask_pix2pix"].float())
         image = _nchw(batch["image_pix2pix"].float())
-        return p2p.loss_G(mask, image, draws.get("dropout"), generator)[0]
+        with amp():
+            fake = p2p.g_apply(mask, arch["upconv"], True,
+                               draws.get("dropout"), generator, keep, g)
+            pred_fake = p2p.d_apply(torch.cat([mask, fake], 1), True, keep, d)
+        return gan_loss(pred_fake, True, p2p.gan_mode) + \
+            p2p.lambda_L1 * l1_loss(fake, image)
 
-    def loss_netD(batch, draws):
+    def loss_netD(batch, draws, params=None, generator=None):
+        g, d, _, arch, keep = nets(params)
         mask = _nchw(batch["mask_pix2pix"].float())
         image = _nchw(batch["image_pix2pix"].float())
         with amp(), torch.no_grad():
-            fake = g_forward(mask, draws)
-        return p2p.loss_D(mask, image, fake)[0]
+            fake = p2p.g_apply(mask, arch["upconv"], True,
+                               draws.get("dropout"), generator, keep, g)
+        with amp():
+            pred_fake = p2p.d_apply(torch.cat([mask, fake], 1), True, keep, d)
+            pred_real = p2p.d_apply(torch.cat([mask, image], 1), True, keep,
+                                    d)
+        return 0.5 * (gan_loss(pred_fake, False, p2p.gan_mode)
+                      + gan_loss(pred_real, True, p2p.gan_mode))
 
-    def loss_unet(batch, draws):
+    def loss_unet(batch, draws, params=None, generator=None):
+        g, _, u, arch, keep = nets(params)
         images = _nchw(batch["image"].float())
         masks = batch["mask"].float()                       # NHWC
         with amp():
             # real branch (train_end2end_jsrt.py:181-183)
-            logits = seg.apply(images, True)
+            logits = seg.apply(images, True, u, keep)
             loss = seg_loss_fn(logits, _nchw(masks), seg.n_classes,
                                seg.loss_type)
             # fake branch (:186-204)
             aug = random_augment_batch(masks, generator, draws.get("affine"))
             fake_mask = iops.threshold_mask(aug, 0.1)
-            with torch.set_grad_enabled(not detach):
-                fake_image = g_forward(_nchw(fake_mask), draws)
-            fake_image = _nchw(iops.equalize_gamma_chain(_nhwc(fake_image),
-                                                         0.5))
-            fake_logits = seg.apply(fake_image, True)
+            with torch.no_grad() if detach else contextlib.nullcontext():
+                fake_image = p2p.g_apply(_nchw(fake_mask), arch["upconv"],
+                                         True, draws.get("dropout"),
+                                         generator, keep, g)
+            if postprocess == "uint8_chain":
+                # integer ops: no gradient flows through them (the JAX
+                # package's integer cast gives zero), so say so
+                fake_image = _nchw(iops.equalize_gamma_chain(
+                    _nhwc(fake_image.detach()), 0.5))
+            else:
+                fake_image = iops.minmax_normalize(fake_image)
+            fake_logits = seg.apply(fake_image, True, u, keep)
             fake_loss = seg_loss_fn(fake_logits, _nchw(fake_mask),
                                     seg.n_classes, seg.loss_type)
         return loss + loss_lambda * fake_loss
 
-    return [
-        InnerProblem("netG", loss_netG, list(p2p.G.parameters()), p2p.opt_g),
-        InnerProblem("netD", loss_netD, list(p2p.D.parameters()), p2p.opt_d),
-        InnerProblem("unet", loss_unet, list(seg.net.parameters()),
-                     seg.make_opt()),
+    def outer_loss(params, val_batch):
+        """The arch problem (:229-236): the U-Net's validation loss, a
+        train-mode forward (batch statistics) on scratch BN buffers."""
+        u = params.get("unet") if params is not None else None
+        images = _nchw(val_batch["image"].float())
+        masks = _nchw(val_batch["mask"].float())
+        with amp():
+            logits = seg.apply(images, True, u, keep_stats=False)
+            return seg_loss_fn(logits, masks, seg.n_classes, seg.loss_type)
+
+    problems = [
+        InnerProblem("netG", loss_netG, p2p.G, p2p.opt_g, cfg.optim.lr),
+        InnerProblem("netD", loss_netD, p2p.D, p2p.opt_d, cfg.optim.lr),
+        InnerProblem("unet", loss_unet, seg.net, seg.make_opt(),
+                     cfg.optim.unet_lr),
     ]
+    return problems, outer_loss
 
 
 def build_engine(cfg: Config, device, seed: int | None = None):
@@ -140,17 +187,20 @@ def build_engine(cfg: Config, device, seed: int | None = None):
                      else "dice",
                      base_features=m.base_features, bilinear=m.bilinear,
                      device=device, generator=init_gen)
-    draw_gen = torch.Generator(device=device).manual_seed(seed + 5)
-    problems = build_problems(cfg, p2p, seg, autocast_for(cfg, device),
-                              draw_gen)
+    problems, outer_loss = build_problems(cfg, p2p, seg,
+                                          autocast_for(cfg, device))
     # end2end arch optimizer: Adam(arch_lr, (0.5, 0.999), wd=1e-5)
     # (train_end2end_jsrt.py:324)
     arch_opt = adam_torch(list(p2p.arch.values()), cfg.optim.arch_lr, 0.5,
                           weight_decay=cfg.optim.arch_weight_decay)
-    engine = BilevelEngine(problems, p2p.arch, arch_opt,
-                           unroll_steps=cfg.engine.unroll_steps,
-                           roll_back=cfg.engine.roll_back,
-                           hypergrad=cfg.engine.hypergrad)
+    e = cfg.engine
+    engine = BilevelEngine(
+        problems, p2p.arch, arch_opt, outer_loss,
+        unroll_steps=e.unroll_steps, roll_back=e.roll_back,
+        hypergrad=e.hypergrad, darts_epsilon=e.darts_epsilon,
+        arch_children=e.arch_children,
+        generator=torch.Generator(device=device).manual_seed(seed + 5),
+        hyper_generator=torch.Generator(device=device).manual_seed(seed + 6))
     return engine, p2p, seg
 
 
@@ -186,13 +236,33 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
         engine.problems[PROBLEMS.index("unet")].optimizer, mode="max",
         factor=cfg.optim.plateau_factor, patience=cfg.optim.plateau_patience)
 
-    K = cfg.engine.unroll_steps
+    e = cfg.engine
+    if e.hypergrad == "darts" and set(e.arch_children) <= {"netG", "netD"}:
+        log.info("NOTE: the darts hypergradient is structurally zero under "
+                 "this config (the outer loss touches only the unet; both "
+                 "reference wirings share this): the arch moves only by "
+                 "Adam weight decay, and hypergrad=decay_only gives the same "
+                 "trajectory faster. For a live search use "
+                 "--preset=end2end_nas.")
+    if e.hypergrad == "decay_only" and not (
+            e.detach_fakes or set(e.arch_children) <= {"netG", "netD"}):
+        log.info("WARNING: hypergrad=decay_only assumes the structural zero "
+                 "(detached fakes, or arch children without validation-loss "
+                 "gradients); this config may have a live hypergradient "
+                 "that decay_only drops: use darts or unroll.")
+
+    K = e.unroll_steps
     n_train = len(splits["train"]["image"])
+    n_val = len(splits["val"]["image"])
     train_dev = to_device_split(splits["train"], dev)
     val_dev = to_device_split(splits["val"], dev)
     streams = {name: epoch_index_batches(n_train, cfg.data.batch_size,
                                          seed=cfg.run.seed * 7 + i)
                for i, name in enumerate(PROBLEMS)}
+    # one validation batch per iteration whatever the mode, as the JAX
+    # trainer draws it
+    val_stream = epoch_index_batches(n_val, cfg.data.batch_size,
+                                     seed=cfg.run.seed + 99)
     val_images = _nchw(val_dev["image"].float())
     val_masks = _nchw(val_dev["mask"])
 
@@ -210,7 +280,8 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
         for _ in range(S):
             batch_stack = [{n: take_batch(train_dev, next(s))
                             for n, s in streams.items()} for _ in range(K)]
-            metrics = engine.engine_step(batch_stack)
+            metrics = engine.engine_step(
+                batch_stack, take_batch(val_dev, next(val_stream)))
         it += S
         with torch.no_grad(), amp():
             val = float(eval_batch_score(seg.eval_logits(val_images),

@@ -10,7 +10,9 @@ and the same from call to call; the down-conv within 1e-2 of the plain version's
 (one bf16 rounding of each output; f32 sums in another order) at the
 flagship's layers, at M = 2, 8, 32 and 130, at a split whose last K range is
 ragged and at shapes off multiples of 8 (the generic path), and the same
-bit for bit from call to call. Each kernel call counts one launch. Marked
+bit for bit from call to call. Each kernel call counts one launch. The
+wrappers with float inputs refuse one that requires grad (no kernel has a
+backward) and launch nothing. Marked
 ``cuda``: without a card these skip. On a machine with one (no JAX needed
 there):
 
@@ -292,3 +294,26 @@ def test_conv_kernel_refuses_float32(dev):
     x, w = layer_inputs(16, 8, 8, np.random.default_rng(3), dev)
     with pytest.raises(TypeError):
         conv_down4(x.float(), w.float())
+
+
+def _grad_case(name: str, dev):
+    x = torch.rand(2, 32, 32, 1, device=dev)
+    if name == "warp_affine":
+        return lambda t: augment.warp_affine_batch(
+            t, torch.eye(3, device=dev).expand(2, 3, 3).contiguous()), x
+    if name == "equalize_uint8":
+        return lambda t: image.equalize_gamma_chain(t, 0.5), x
+    w = torch.rand(4, 4, 8, 16, device=dev, dtype=torch.bfloat16)
+    x = torch.rand(2, 32, 32, 8, device=dev, dtype=torch.bfloat16)
+    return lambda t: conv_down4(t, w), x
+
+
+@pytest.mark.parametrize("name", ["warp_affine", "equalize_uint8",
+                                  "conv_down4"])
+def test_wrappers_refuse_inputs_that_require_grad(dev, name):
+    fn, x = _grad_case(name, dev)
+    fn(x)                                   # launches without grad
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fn(x.clone().requires_grad_(True))
+    assert kernels.LAUNCHES[name] == 0

@@ -82,8 +82,8 @@ def test_three_decay_only_iterations_match_jax():
             next(val_stream), jnp.int32(it), root, PROBLEMS)
         mats = torch.from_numpy(_unet_affines(root, it, bs, 32))
         mt = engine.engine_step([{n: take_batch(train_t, idx[n])
-                                  for n in PROBLEMS}],
-                                [{"unet": {"affine": mats}}])
+                                  for n in PROBLEMS}], None,
+                                {"replay": [{"unet": {"affine": mats}}]})
         for n in PROBLEMS:
             a, b = float(mt[f"loss_{n}"]), float(mj[f"loss_{n}"])
             assert np.isfinite(a)

@@ -9,7 +9,6 @@ import torch
 
 from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.core.config import parse_config
-from semantic_segmentation_torch.engine.bilevel import BilevelEngine
 from semantic_segmentation_torch.train import train_end2end
 
 ARGV = ["--data.synthetic=true", "--data.image_size=32", "--data.n_train=4",
@@ -64,9 +63,40 @@ def test_entry_point_without_device_raises_when_cuda_absent(monkeypatch,
 
 
 @pytest.mark.parametrize("mode", ["darts", "unroll"])
-def test_unported_hypergrads_raise(mode):
-    with pytest.raises(NotImplementedError):
-        BilevelEngine([], {}, None, hypergrad=mode)
+def test_hypergrad_modes_train_on_cpu(mode, tmp_path):
+    # darts under the reference wiring (its hypergradient is structurally
+    # zero: the arch moves by weight decay alone); unroll under end2end_nas,
+    # whose hypergradient is live: the arch moves otherwise
+    preset = "end2end_jsrt" if mode == "darts" else "end2end_nas"
+    cfg = parse_config(ARGV + [f"--run.save_dir={tmp_path}",
+                               f"--engine.hypergrad={mode}"], preset=preset)
+    engine, results = train_end2end.train(cfg, train_iters=2, device="cpu")
+    assert engine.hypergrad == mode and engine.step == 2
+    for c in results["chunks"]:
+        for k in ("loss_netG", "loss_netD", "loss_unet", "outer_loss",
+                  "arch_grad_norm", "replay_loss_unet", "val_score"):
+            assert np.isfinite(c[k]), (k, c)
+    _, fresh, _ = train_end2end.build_engine(cfg, "cpu")
+    decayed, _, _ = train_end2end.build_engine(cfg, "cpu")
+    for _ in range(2):
+        decayed._arch_decay_step()
+    for k, v in engine.arch.items():
+        assert not torch.equal(v, fresh.arch[k])
+    moved_otherwise = max((v - decayed.arch[k]).abs().max().item()
+                          for k, v in engine.arch.items())
+    if mode == "darts":
+        assert results["chunks"][-1]["arch_grad_norm"] == 0.0
+        assert moved_otherwise == 0.0
+    else:
+        assert results["chunks"][-1]["arch_grad_norm"] > 0.0
+        assert moved_otherwise > 1e-8
+
+
+def test_photometric_postprocess_is_refused(tmp_path):
+    cfg = parse_config(ARGV + [f"--run.save_dir={tmp_path}",
+                               "--engine.fake_postprocess=photometric"])
+    with pytest.raises(NotImplementedError, match="photometric"):
+        train_end2end.build_engine(cfg, "cpu")
 
 
 def test_hypergrad_none_leaves_arch(tmp_path):
