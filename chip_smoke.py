@@ -52,7 +52,28 @@ Phases, each of which stops the script with a nonzero exit on failure:
    hypergradient finite and > 0 on every chunk); finite losses, best_val
    and test Dice produced, the histogram and the down-conv never launched,
    and steady it/s and peak memory printed for each;
-8. timing, after the trainers so that the profiler cannot slow them: the
+7b. the real-data path at the same full width from the same checkpoint:
+   PNG folders written under build/ from ``SyntheticSegDataset`` arrays (a
+   JSRT layout of 16 pairs at 300^2, so that the loader resizes, and an
+   OOD set of 8 pairs with the ``_mask`` suffix; PIL decodes them on the
+   host); the flagship (``decay_only``) trained from the folder for 20
+   iterations with ``--data.n_test=7``, ``--data.ood_roots=sz:...`` and
+   ``--run.save_every=10`` (warp and equalize 20 launches, finite test and
+   OOD Dice, ``metrics.jsonl``, checkpoint steps 10 and 20; steady it/s and
+   peak memory beside phase 7's); a second such run for the run-to-run
+   spread; resume: a 10-iteration run resumed at 10 runs nothing and holds
+   the saved engine and host state bit for bit, resumed to 20 its chunk's
+   losses and val score agree with the uninterrupted run within 4 x the
+   spread of the uninterrupted runs, and the fast-forwarded batch-index
+   streams equal the straight ones exactly; ``test_seg.run`` on the run's
+   ``unet_best.pt`` gives the trainer's test and OOD Dice within 1e-6; and
+   ``train_unet`` for 20 steps on the folder (finite losses, best_val, a
+   checkpoint, no kernel launched, its step rate);
+8. timing, after the trainers so that the profiler cannot slow them, in a
+   fresh child process (in a process that had run the trainers,
+   torch.profiler was seen to drop device events from its traces; a fresh
+   process did not), which repeats phase 3's kernel checks to make its
+   inputs and then times: the
    warp's and the equalize's device time (torch.profiler) and wrapper call
    time (CUDA events) on the inputs of phase 3, beside their plain
    versions' and the library call's (``F.grid_sample`` for the warp), and
@@ -75,6 +96,7 @@ from __future__ import annotations
 
 import json
 import math
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -82,6 +104,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAIN_ITERS, MODE_ITERS, VALID_STEP, PIX2PIX_STEPS = 20, 20, 10, 20
 SAVE_DIR = ROOT / "build" / "chip_smoke_run"
+# phase 8 runs in a child process: ``python3 chip_smoke.py --timing-child``
+# writes its kernel records and launch counts to TIMING_FILE
+TIMING_ARG = "--timing-child"
+TIMING_FILE = ROOT / "build" / "chip_smoke_timing.json"
 
 
 def fail(msg: str):
@@ -577,6 +603,257 @@ def phase_trainer(torch, ckpt, label: str):
     torch.cuda.empty_cache()
     return stats
 
+DATA_DIR = ROOT / "build" / "chip_smoke_data"
+RESUME_KEYS = ("loss_netG", "loss_netD", "loss_unet", "replay_loss_netG",
+               "replay_loss_netD", "replay_loss_unet", "val_score")
+
+
+def write_folders():
+    """A JSRT-layout folder (16 pairs at 300^2) and an OOD folder (8 pairs,
+    ``_mask`` suffix) of PNGs made from ``SyntheticSegDataset`` arrays."""
+    import shutil
+
+    import numpy as np
+    try:
+        from PIL import Image
+    except ImportError:
+        fail("PIL is not installed: the folder loader cannot decode")
+    from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    roots = {}
+    for name, n, seed, suffix in (("jsrt", 16, 21, ""), ("sz", 8, 22,
+                                                          "_mask")):
+        root = DATA_DIR / name
+        (root / "Images").mkdir(parents=True)
+        (root / "Masks").mkdir()
+        ds = SyntheticSegDataset(n=n, size=300, seed=seed)
+        for i in range(n):
+            item = ds[i]
+            Image.fromarray((item["image"][..., 0] * 255).astype(np.uint8),
+                            "L").save(root / "Images" / f"case{i:02d}.png")
+            Image.fromarray((item["mask"][..., 0] * 255).astype(np.uint8),
+                            "L").save(root / "Masks" /
+                                      f"case{i:02d}{suffix}.png")
+        roots[name] = root
+    return roots
+
+
+def _folder_cfg(roots, ckpt, name: str, *extra):
+    from semantic_segmentation_torch.core.config import parse_config
+    return parse_config([f"--data.dataroot={roots['jsrt']}",
+                         "--data.n_test=7",
+                         f"--data.ood_roots=sz:{roots['sz']}:_mask",
+                         f"--engine.valid_step={VALID_STEP}",
+                         f"--run.save_every={VALID_STEP}",
+                         f"--run.pretrained_pix2pix={ckpt}",
+                         f"--run.save_dir={SAVE_DIR}", f"--run.name={name}",
+                         *extra], preset="end2end_jsrt")
+
+
+def _folder_train(torch, cfg, iters: int):
+    """train() of ``cfg`` on the card; (engine, results, launches)."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.train.train_end2end import train
+    kernels.reset_launches()
+    engine, results = train(cfg, train_iters=iters, device="cuda")
+    torch.cuda.synchronize()
+    return engine, results, dict(kernels.LAUNCHES)
+
+
+def _rel_gaps(a: dict, b: dict) -> dict:
+    return {k: abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for k in RESUME_KEYS}
+
+
+def _same_tree(torch, a, b, path="state"):
+    """Equal structure; tensors bit for bit, other leaves ==."""
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and a.keys() == b.keys(),
+              f"resume: {path} keys differ")
+        for k in a:
+            _same_tree(torch, a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"resume: {path} lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(torch, x, y, f"{path}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        check(torch.equal(a.cpu(), b.cpu()), f"resume: {path} differs")
+    else:
+        check(a == b, f"resume: {path}: {a} != {b}")
+
+
+def phase_real_data(torch, ckpt, synthetic: dict):
+    """Phase 7b (module docstring). Returns the folder run's stats, with
+    its launches."""
+    import shutil
+
+    import numpy as np
+
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.train import test_seg, train_unet
+    from semantic_segmentation_torch.train.train_end2end import index_streams
+    t_data = time.perf_counter()
+    roots = write_folders()
+    data_s = time.perf_counter() - t_data
+
+    # the flagship from the folder
+    cfg = _folder_cfg(roots, ckpt, "folder-a")
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.base_features, m.compute_dtype, cfg.engine.hypergrad) ==
+          (256, 2, "unet_256", 64, 64, 64, "bfloat16", "decay_only"),
+          "folder: not the full-width end2end_jsrt configuration")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, run_a, launches = _folder_train(torch, cfg, TRAIN_ITERS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {"warp_affine": TRAIN_ITERS, "equalize_uint8": TRAIN_ITERS,
+            "histogram256": 0, "conv_down4": 0}
+    check(launches == want, f"folder: launches {launches}, not {want}")
+    for k in ("best_val", "test_dice", "ood_sz"):
+        check(k in run_a and math.isfinite(run_a[k]),
+              f"folder: no finite {k}: {run_a}")
+    run_dir = SAVE_DIR / cfg.run.name
+    check((run_dir / "metrics.jsonl").stat().st_size > 0,
+          "folder: metrics.jsonl not written")
+    steps = sorted(int(s.name) for s in (run_dir / "ckpt").iterdir()
+                   if s.name.isdigit())
+    check(steps == [10, 20], f"folder: checkpoint steps {steps}")
+    its = run_a["chunks"][1]["iters"] / run_a["chunks"][1]["seconds"]
+    stats = {"iters": TRAIN_ITERS, "wall_s": wall,
+             "data_write_s": data_s,
+             "steady_it_per_s": its, "steady_iter_ms": 1e3 / its,
+             "peak_mem_bytes": peak,
+             "synthetic_steady_it_per_s": synthetic["steady_it_per_s"],
+             "synthetic_peak_mem_bytes": synthetic["peak_mem_bytes"],
+             "best_val": run_a["best_val"], "test_dice": run_a["test_dice"],
+             "ood_sz": run_a["ood_sz"], "checkpoint_steps": steps,
+             "launches": launches}
+    print(f"[folder] steady {its:.2f} it/s, peak {peak} bytes; phase 7 on "
+          f"synthetic data: {synthetic['steady_it_per_s']:.2f} it/s, "
+          f"{synthetic['peak_mem_bytes']} bytes; test_dice "
+          f"{run_a['test_dice']:.4f} ood_sz {run_a['ood_sz']:.4f}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the run-to-run spread: a second uninterrupted run, and a 10-iteration
+    # run whose first chunk is a third sample
+    engine, run_b, _ = _folder_train(
+        torch, _folder_cfg(roots, ckpt, "folder-b"), TRAIN_ITERS)
+    del engine
+    shutil.rmtree(SAVE_DIR / "folder-b")
+    engine, run_c, _ = _folder_train(
+        torch, _folder_cfg(roots, ckpt, "folder-c"), VALID_STEP)
+    del engine
+    torch.cuda.empty_cache()
+    samples = [_rel_gaps(run_a["chunks"][1], run_b["chunks"][1]),
+               _rel_gaps(run_a["chunks"][0], run_b["chunks"][0]),
+               _rel_gaps(run_a["chunks"][0], run_c["chunks"][0])]
+    spread = max(max(s.values()) for s in samples)
+    bound = 4.0 * spread
+    print(f"[resume] run-to-run spread of uninterrupted runs (largest "
+          f"relative gap of {', '.join(RESUME_KEYS)} over 3 pairs of "
+          f"chunks): {spread:.3e}; bound for the resumed run 4 x that = "
+          f"{bound:.3e}")
+
+    # (a) resumed at the saved iteration: nothing runs, the state is as saved
+    step_file = SAVE_DIR / "folder-c" / "ckpt" / str(VALID_STEP) / "state.pt"
+    saved = torch.load(step_file, map_location="cpu", weights_only=True)
+    engine, run_r, launches_r = _folder_train(
+        torch, _folder_cfg(roots, ckpt, "folder-c", "--run.resume=true"),
+        VALID_STEP)
+    check(run_r["chunks"] == [] and engine.step == VALID_STEP
+          and not any(launches_r.values()),
+          f"resume (a): iterations ran: {run_r['chunks']}, {launches_r}")
+    _same_tree(torch, saved["engine"], engine.state_dict(), "engine")
+    _same_tree(torch, saved, torch.load(step_file, map_location="cpu",
+                                        weights_only=True))
+    check(run_r["best_val"] == saved["host"]["best_val"],
+          "resume (a): best_val differs")
+    del engine, saved
+    print("[resume] (a) resumed at iteration 10: no iteration ran; "
+          "parameters, BN buffers, optimizer states, arch tables, both "
+          "generators, best_val, the plateau and the best U-Net equal the "
+          "checkpoint bit for bit")
+
+    # the fast-forwarded streams against the straight ones
+    n_train, n_val = cfg.data.n_train, cfg.data.n_val
+    fwd, fwd_val = index_streams(cfg, n_train, n_val, start=VALID_STEP)
+    straight, straight_val = index_streams(cfg, n_train, n_val)
+    K = cfg.engine.unroll_steps
+    for _ in range(VALID_STEP * K):
+        for s in straight.values():
+            next(s)
+    for _ in range(VALID_STEP):
+        next(straight_val)
+    for _ in range(2 * VALID_STEP * K):
+        for name in fwd:
+            check(np.array_equal(next(fwd[name]), next(straight[name])),
+                  f"resume: the fast-forwarded {name} stream differs")
+    for _ in range(2 * VALID_STEP):
+        check(np.array_equal(next(fwd_val), next(straight_val)),
+              "resume: the fast-forwarded validation stream differs")
+
+    # (b) resumed to 20 against the uninterrupted run's second chunk
+    engine, run_r, launches_r = _folder_train(
+        torch, _folder_cfg(roots, ckpt, "folder-c", "--run.resume=true"),
+        TRAIN_ITERS)
+    del engine
+    torch.cuda.empty_cache()
+    check([c["it"] for c in run_r["chunks"]] == [TRAIN_ITERS]
+          and launches_r["warp_affine"] == TRAIN_ITERS - VALID_STEP,
+          f"resume (b): chunks {run_r['chunks']}, launches {launches_r}")
+    gaps = _rel_gaps(run_a["chunks"][1], run_r["chunks"][0])
+    check(max(gaps.values()) <= bound,
+          f"resume (b): relative gaps {gaps} beyond {bound:.3e}")
+    shutil.rmtree(SAVE_DIR / "folder-c")
+    print(f"[resume] (b) resumed to 20: largest relative gap to the "
+          f"uninterrupted run {max(gaps.values()):.3e} (<= {bound:.3e}); "
+          f"the fast-forwarded batch-index streams equal the straight ones")
+    stats.update(resume_spread=spread, resume_bound=bound,
+                 resume_gap=max(gaps.values()))
+
+    # test_seg on the run's best U-Net
+    scored = test_seg.run(cfg, model_file=str(run_dir / "unet_best.pt"),
+                          device="cuda")
+    for k in ("test_dice", "ood_sz"):
+        check(abs(scored[k] - run_a[k]) <= 1e-6,
+              f"test_seg: {k} {scored[k]} against the trainer's {run_a[k]}")
+    shutil.rmtree(run_dir / "ckpt")
+    print(f"[test_seg] {scored} equal the trainer's within 1e-6")
+
+    # the supervised baseline on the folder
+    from semantic_segmentation_torch.core.config import parse_config
+    ucfg = parse_config([f"--data.dataroot={roots['jsrt']}",
+                         "--data.n_test=7",
+                         f"--data.ood_roots=sz:{roots['sz']}:_mask",
+                         f"--engine.valid_step={VALID_STEP}",
+                         f"--run.save_dir={SAVE_DIR}", "--run.name=unet"])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    seg, run_u = train_unet.train(ucfg, train_iters=TRAIN_ITERS,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    launches_u = dict(kernels.LAUNCHES)
+    check(not any(launches_u.values()),
+          f"train_unet: the path runs no kernel, launches {launches_u}")
+    check(all(math.isfinite(r["loss"]) for r in run_u["log"])
+          and len(run_u["log"]) == TRAIN_ITERS // VALID_STEP,
+          f"train_unet: losses {run_u['log']}")
+    check(math.isfinite(run_u["best_val"]) and run_u["best_val"] > 0.0
+          and any((SAVE_DIR / "unet" / "ckpt").iterdir()),
+          f"train_unet: best_val {run_u['best_val']} or no checkpoint")
+    rec = run_u["log"][1]
+    stats["train_unet"] = {
+        "steps": TRAIN_ITERS, "steady_steps_per_s": rec["steps"] /
+        rec["seconds"], "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "best_val": run_u["best_val"], "test_dice": run_u["test_dice"],
+        "ood_sz": run_u["ood_sz"], "launches": launches_u}
+    print(f"[train_unet] " + json.dumps(stats["train_unet"]))
+    del seg
+    torch.cuda.empty_cache()
+    return stats
+
 
 def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
@@ -653,6 +930,47 @@ def phase_benches(torch, records, gen_img):
     return launches
 
 
+def _generator(torch, dev):
+    """The full-width unet_256 generator and its up-conv arch table from
+    seed 0, in eval mode: phase 3's and phase 4's inputs."""
+    from semantic_segmentation_torch.models.pix2pix.networks import define_G
+    from semantic_segmentation_torch.ops.nas import init_arch_params
+    init = torch.Generator().manual_seed(0)
+    G = define_G(1, 1, "unet_256", 64, True, init).to(dev).eval()
+    return G, init_arch_params(init)["upconv"].to(dev)
+
+
+def timing_child(torch) -> int:
+    """Phase 8 in this (fresh) process: phase 3's checks make the inputs,
+    then the kernel timing and the benchmark paths; the records and each
+    path's launch counts go to TIMING_FILE."""
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    G, arch = _generator(torch, dev)
+    records, timers, gen_img = phase_kernels(torch, dev, G, arch)
+    del G
+    torch.backends.cudnn.allow_tf32 = True     # the trainer's defaults
+    torch.cuda.empty_cache()
+    phase_timing(records, timers)
+    launches = phase_benches(torch, records, gen_img)
+    TIMING_FILE.write_text(json.dumps({"records": records,
+                                       "launches": launches}))
+    return 0
+
+
+def run_timing_child() -> tuple[dict, dict]:
+    """Phase 8 in a child process; (kernel records, launches by path)."""
+    sys.stdout.flush()
+    TIMING_FILE.unlink(missing_ok=True)
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         TIMING_ARG]).returncode
+    check(rc == 0 and TIMING_FILE.is_file(),
+          f"timing phase: the child process exited {rc}")
+    child = json.loads(TIMING_FILE.read_text())
+    return child["records"], child["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -668,6 +986,8 @@ def main() -> int:
               f"{__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == [TIMING_ARG]:
+        return timing_child(torch)
     from semantic_segmentation_torch.bench.timing import card_line
 
     # 1. device
@@ -687,13 +1007,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    from semantic_segmentation_torch.models.pix2pix.networks import define_G
     from semantic_segmentation_torch.ops import augment
-    from semantic_segmentation_torch.ops.nas import init_arch_params
-    init = torch.Generator().manual_seed(0)
-    G = define_G(1, 1, "unet_256", 64, True, init).to(dev).eval()
-    arch = init_arch_params(init)["upconv"].to(dev)
-    records, timers, gen_img = phase_kernels(torch, dev, G, arch)
+    G, arch = _generator(torch, dev)
+    phase_kernels(torch, dev, G, arch)
     gen = torch.Generator(device=dev).manual_seed(1)
     from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
     ds = SyntheticSegDataset(n=2, size=256, seed=4)
@@ -712,14 +1028,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_start(torch, ckpt)
     paths = {"pix2pix_trainer": p2p_stats["launches"]}
+    trainer_stats = {}
     for label in TRAINERS:
-        stats = phase_trainer(torch, ckpt, label)
-        print(f"[{label}] {card}: " + json.dumps(stats))
-        paths[label] = stats["launches"]
+        trainer_stats[label] = phase_trainer(torch, ckpt, label)
+        print(f"[{label}] {card}: " + json.dumps(trainer_stats[label]))
+        paths[label] = trainer_stats[label]["launches"]
 
-    # 8. timing and the benchmark paths
-    phase_timing(records, timers)
-    paths.update(phase_benches(torch, records, gen_img))
+    # 7b. the real-data path: folder, resume, test_seg, train_unet
+    folder = phase_real_data(torch, ckpt, trainer_stats["end2end_trainer"])
+    print(f"[folder_trainer] {card}: " + json.dumps(folder))
+    paths["folder_trainer"] = folder["launches"]
+
+    # 8. timing and the benchmark paths, in a fresh process
+    records, bench_paths = run_timing_child()
+    paths.update(bench_paths)
     main_path = {"warp_affine": "end2end_trainer",
                  "equalize_uint8": "end2end_trainer",
                  "histogram256": "bench_kernels",

@@ -4,7 +4,7 @@ The port's own copy of ``semantic_segmentation_tpu/core/config.py``, with
 the same sections, field names and defaults, so one command line means the
 same run on both packages. It holds only the fields and presets the port
 uses, plus ``run.device``: an option of the JAX package that the port does
-not implement yet (folder datasets, checkpointing, wandb, other init laws)
+not implement yet (the data mesh, gradient accumulation, other init laws)
 is refused, not ignored.
 
 CLI: ``--section.field=value`` overrides any leaf (parsed with the field's
@@ -14,14 +14,19 @@ preset first.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, fields
 from typing import Any
 
 
 @dataclass
 class DataConfig:
-    """Dataset and regime (train_end2end_jsrt.py:78-97)."""
-    dataset: str = "jsrt"
+    """Dataset locations and regime (train_end2end_jsrt.py:78-97)."""
+    dataroot: str = "../data/JSRT"
+    dataset: str = "jsrt"            # jsrt | isic | se | liver3 | ...
+    ood_roots: tuple = ()            # out-of-domain eval sets,
+                                     # [name:]path[:mask_suffix] each
+    mask_suffix: str = ""            # SZ uses '_mask', PH2 '_lesion'
     image_size: int = 256
     n_train: int = 7
     n_val: int = 2
@@ -89,13 +94,26 @@ class EngineConfig:
 
 @dataclass
 class RunConfig:
-    """Output, seed and device."""
+    """Output, checkpointing, logging, seed and device."""
     save_dir: str = "./checkpoints"
     name: str = "end2end-JSRT-9-unet"
     pretrained_pix2pix: str = ""     # stage-1 G/D checkpoint dir ('' = fresh)
+    final_checkpoint: bool = True    # end2end: save the whole engine state
+                                     # at the end
+    resume: bool = False             # end2end: restore the latest engine
+                                     # checkpoint and continue from it
     seed: int = 0
     log_every: int = 10
-    save_every: int = 0              # pix2pix: save G/D every N epochs
+    save_every: int = 0              # end2end: save the engine state every N
+                                     # iterations; pix2pix: G/D every N
+                                     # epochs; 0 = only at the end
+    model_file: str = ""             # test_seg: explicit checkpoint file
+                                     # (the port's .pt, or a reference
+                                     # milesial state_dict .pkl/.pth)
+    wandb: bool = False
+    wandb_project: str = "end2end-JSRT"
+    profile_dir: str = ""            # torch.profiler Chrome trace dir
+                                     # ('' = off)
     device: str = "cuda"             # entry points run here; 'cpu' on request
 
 
@@ -106,6 +124,9 @@ class Config:
     optim: OptimConfig = field(default_factory=OptimConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     run: RunConfig = field(default_factory=RunConfig)
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
 
 
 # The JAX package's presets whose entry points the port has; the others

@@ -181,6 +181,48 @@ class BilevelEngine:
         if gen_state is not None:
             self.generator.set_state(gen_state)
 
+    # -- checkpoint ---------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Everything the next iteration reads, for a checkpoint: the
+        iteration count, each problem's parameters and BN buffers and its
+        optimizer's state, the arch tables and their optimizer's state, and
+        both generators' states. The JAX engine draws from
+        ``fold_in(root, it)``, which needs no state; these generators do.
+        Tensors are references, as a module's ``state_dict`` gives them."""
+        return {
+            "step": self.step,
+            "problems": {p.name: {"module": p.module.state_dict(),
+                                  "optimizer": p.optimizer.state_dict()}
+                         for p in self.problems},
+            "arch": {k: a.detach() for k, a in self.arch.items()},
+            "arch_optimizer": (None if self.arch_optimizer is None
+                               else self.arch_optimizer.state_dict()),
+            "generator": (None if self.generator is None
+                          else self.generator.get_state()),
+            "hyper_generator": (None if self.hyper_generator is None
+                                else self.hyper_generator.get_state()),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Back to ``state`` (a ``state_dict()``), in place: the optimizers
+        keep their ``Parameter`` objects, the arch tables their tensors."""
+        for p in self.problems:
+            p.module.load_state_dict(state["problems"][p.name]["module"])
+            p.optimizer.load_state_dict(state["problems"][p.name]["optimizer"])
+        if state["arch"].keys() != self.arch.keys():
+            raise ValueError(f"arch tables {sorted(state['arch'])}, expected "
+                             f"{sorted(self.arch)}")
+        for k, a in self.arch.items():
+            a.copy_(state["arch"][k])
+        if self.arch_optimizer is not None:
+            self.arch_optimizer.load_state_dict(state["arch_optimizer"])
+        for name in ("generator", "hyper_generator"):
+            gen = getattr(self, name)
+            if gen is not None:
+                gen.set_state(state[name])
+        self.step = int(state["step"])
+
     @torch.no_grad()
     def _arch_step(self, hg: dict):
         """Adam on the hypergradient ``hg`` (arch name -> tensor)."""

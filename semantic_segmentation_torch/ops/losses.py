@@ -1,10 +1,13 @@
 """Segmentation / GAN losses — the port of the parts of
 ``semantic_segmentation_tpu/ops/losses.py`` the flagship trainer uses.
 
-Parity targets: Dice ``util/dice_score.py:5-28``; BCE-with-logits criterion
-``running_files/train_end2end_jsrt.py:136``; GAN objectives
-``models_pix2pix/networks.py:215-318``. Reductions run in float32 whatever
-the autocast dtype.
+Parity targets: Dice ``util/dice_score.py:5-28`` (binary, and the
+multi-class mean the evaluation protocol scores); Jaccard
+``running_files/train_end2end_isic.py:40-53`` (evaluation only: the Jaccard
+and multi-class training losses come with the ISIC slice);
+BCE-with-logits criterion ``running_files/train_end2end_jsrt.py:136``; GAN
+objectives ``models_pix2pix/networks.py:215-318``. Reductions run in
+float32 whatever the autocast dtype.
 """
 
 from __future__ import annotations
@@ -25,6 +28,30 @@ def dice_coeff(pred, target, reduce_batch_first: bool = False,
     sets_sum = torch.sum(pred, dim=dims) + torch.sum(target, dim=dims)
     sets_sum = torch.where(sets_sum == 0, inter, sets_sum)
     return torch.mean((inter + epsilon) / (sets_sum + epsilon))
+
+
+def multiclass_dice_coeff(pred, target, reduce_batch_first: bool = False,
+                          epsilon: float = 1e-6):
+    """Average Dice over classes: flattens (batch, class) like
+    ``util/dice_score.py:21-23``."""
+    pred = pred.reshape((-1,) + tuple(pred.shape[2:]))
+    target = target.reshape((-1,) + tuple(target.shape[2:]))
+    return dice_coeff(pred, target, reduce_batch_first, epsilon)
+
+
+def jaccard_index(y_true, y_pred, smooth: float = 1.0):
+    """Smoothed IoU, averaged over the batch
+    (``running_files/train_end2end_isic.py:40-53``)."""
+    y_true, y_pred = y_true.float(), y_pred.float()
+    if y_pred.dim() == 2:
+        y_true, y_pred = y_true[None], y_pred[None]
+    # all leading axes fold into one batch axis (the reference loops over
+    # dim 0)
+    y_true = y_true.reshape((-1,) + tuple(y_true.shape[-2:]))
+    y_pred = y_pred.reshape((-1,) + tuple(y_pred.shape[-2:]))
+    inter = torch.sum(torch.abs(y_true * y_pred), dim=(-1, -2))
+    sum_ = torch.sum(torch.abs(y_true) + torch.abs(y_pred), dim=(-1, -2))
+    return torch.mean((inter + smooth) / (sum_ - inter + smooth))
 
 
 def dice_loss(pred, target):

@@ -17,15 +17,19 @@ The four Betty problems become closures over the shared nets:
   and unroll hypergradients (not evaluated under ``decay_only``).
 
 Validation Dice every ``valid_step``; best-val snapshot; ReduceLROnPlateau
-on the unet lr every len(train) steps; final test Dice; ``torch.save`` of
-the best U-Net.
+on the unet lr every len(train) steps; the metric stream, periodic and final
+checkpoints and resume; final test and OOD Dice of the best U-Net;
+``torch.save`` of the best U-Net.
 
 The public ops keep the JAX package's NHWC layout; the nets are NCHW. The
 closures permute at the boundary, a view at C = 1.
 
 Usage: ``python -m semantic_segmentation_torch.train.train_end2end
---preset=end2end_jsrt --data.synthetic=true [--engine.hypergrad=darts]
-[--run.device=cpu]``; the live search: ``--preset=end2end_nas``.
+--preset=end2end_jsrt --data.dataroot=<JSRT dir>
+[--data.ood_roots=nlm:<dir>,sz:<dir>:_mask] [--engine.hypergrad=darts]
+[--run.device=cpu]`` (``--data.synthetic=true`` for generated data,
+``--run.resume=true`` to continue a run); the live search:
+``--preset=end2end_nas``.
 """
 
 from __future__ import annotations
@@ -38,11 +42,13 @@ import time
 
 import torch
 
+from semantic_segmentation_torch.core.checkpoint import CheckpointManager
 from semantic_segmentation_torch.core.config import (Config, parse_config,
                                                      resolve_device)
+from semantic_segmentation_torch.core.logging_utils import MetricsLogger
 from semantic_segmentation_torch.core.optim import adam_torch
+from semantic_segmentation_torch.core.profiling import StepTimer, trace
 from semantic_segmentation_torch.data.pipeline import (epoch_index_batches,
-                                                       eval_batches,
                                                        take_batch,
                                                        to_device_split)
 from semantic_segmentation_torch.engine.bilevel import (BilevelEngine,
@@ -53,11 +59,12 @@ from semantic_segmentation_torch.ops import image as iops
 from semantic_segmentation_torch.ops.augment import random_augment_batch
 from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 from semantic_segmentation_torch.ops.metrics import eval_batch_score
-from semantic_segmentation_torch.train.common import autocast_for, load_splits
+from semantic_segmentation_torch.train.common import (autocast_for,
+                                                      load_splits, seg_metric,
+                                                      seg_model_kwargs)
 from semantic_segmentation_torch.train.train_pix2pix import (build_pix2pix,
                                                              load_model)
-
-log = logging.getLogger(__name__)
+from semantic_segmentation_torch.train.train_unet import evaluate_split
 
 PROBLEMS = ("netG", "netD", "unet")
 
@@ -182,11 +189,9 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     if cfg.run.pretrained_pix2pix:
         load_model(p2p, cfg.run.pretrained_pix2pix)
     seg = SegProblem(m.seg_model, m.output_nc, m.classes,
-                     lr=cfg.optim.unet_lr,
-                     loss_type="jaccard" if cfg.data.dataset.startswith("isic")
-                     else "dice",
-                     base_features=m.base_features, bilinear=m.bilinear,
-                     device=device, generator=init_gen)
+                     lr=cfg.optim.unet_lr, loss_type=seg_metric(cfg),
+                     device=device, generator=init_gen,
+                     **seg_model_kwargs(cfg))
     problems, outer_loss = build_problems(cfg, p2p, seg,
                                           autocast_for(cfg, device))
     # end2end arch optimizer: Adam(arch_lr, (0.5, 0.999), wd=1e-5)
@@ -204,39 +209,25 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     return engine, p2p, seg
 
 
-@torch.no_grad()
-def evaluate_seg(seg: SegProblem, net, data, batch_size: int, amp,
-                 device) -> float:
-    """Mean over batches of the batch Dice (``unet/evaluate.py``)."""
-    total, count = 0.0, 0
-    for b in eval_batches(data, batch_size):
-        images = _nchw(torch.from_numpy(b["image"]).float().to(device))
-        net.eval()
-        with amp():
-            logits = net(images)
-        mask = _nchw(torch.from_numpy(b["mask"]).to(device))
-        total += float(eval_batch_score(logits, mask, seg.n_classes))
-        count += 1
-    return total / max(count, 1)
+def index_streams(cfg: Config, n_train: int, n_val: int, start: int = 0):
+    """The batch-index streams of the three inner problems and the
+    validation stream, fast-forwarded to iteration ``start``: each inner
+    stream draws K batches an iteration, the validation stream one."""
+    streams = {name: epoch_index_batches(n_train, cfg.data.batch_size,
+                                         seed=cfg.run.seed * 7 + i)
+               for i, name in enumerate(PROBLEMS)}
+    val_stream = epoch_index_batches(n_val, cfg.data.batch_size,
+                                     seed=cfg.run.seed + 99)
+    for s in streams.values():
+        for _ in range(start * cfg.engine.unroll_steps):
+            next(s)
+    for _ in range(start):
+        next(val_stream)
+    return streams, val_stream
 
 
-def train(cfg: Config, train_iters: int | None = None, device=None):
-    """Train ``cfg`` on ``device`` (default ``cfg.run.device``, 'cuda').
-    Returns (engine, results); ``results['chunks']`` has one record per
-    validation interval: iterations, wall seconds (ending in a device
-    sync), losses and val score."""
-    dev = resolve_device(device or cfg.run.device)
-    engine, p2p, seg = build_engine(cfg, dev)
-    amp = autocast_for(cfg, dev)
-    splits = load_splits(cfg)
-    save_dir = os.path.join(cfg.run.save_dir, cfg.run.name)
-    # ReduceLROnPlateau(max, patience=5) on the unet's RMSprop
-    # (train_end2end_jsrt.py:73)
-    plateau = torch.optim.lr_scheduler.ReduceLROnPlateau(
-        engine.problems[PROBLEMS.index("unet")].optimizer, mode="max",
-        factor=cfg.optim.plateau_factor, patience=cfg.optim.plateau_patience)
-
-    e = cfg.engine
+def _log_mode_notes(log, e):
+    """The JAX trainer's two notes on the hypergradient mode."""
     if e.hypergrad == "darts" and set(e.arch_children) <= {"netG", "netD"}:
         log.info("NOTE: the darts hypergradient is structurally zero under "
                  "this config (the outer loss touches only the unet; both "
@@ -251,65 +242,139 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
                  "gradients); this config may have a live hypergradient "
                  "that decay_only drops: use darts or unroll.")
 
-    K = e.unroll_steps
-    n_train = len(splits["train"]["image"])
-    n_val = len(splits["val"]["image"])
-    train_dev = to_device_split(splits["train"], dev)
-    val_dev = to_device_split(splits["val"], dev)
-    streams = {name: epoch_index_batches(n_train, cfg.data.batch_size,
-                                         seed=cfg.run.seed * 7 + i)
-               for i, name in enumerate(PROBLEMS)}
-    # one validation batch per iteration whatever the mode, as the JAX
-    # trainer draws it
-    val_stream = epoch_index_batches(n_val, cfg.data.batch_size,
-                                     seed=cfg.run.seed + 99)
-    val_images = _nchw(val_dev["image"].float())
-    val_masks = _nchw(val_dev["mask"])
 
-    def snapshot_unet():
-        return {k: v.detach().clone() for k, v in
-                seg.net.state_dict().items()}
+def train(cfg: Config, train_iters: int | None = None, device=None):
+    """Train ``cfg`` on ``device`` (default ``cfg.run.device``, 'cuda').
+    Returns (engine, results); ``results['chunks']`` has one record per
+    validation interval this call ran: iterations, wall seconds (ending in
+    a device sync), losses and val score.
 
-    iters = train_iters or cfg.engine.train_iters
-    best_val, it = 0.0, 0
-    best_unet = snapshot_unet()
-    chunks = []
-    while it < iters:
-        t0 = time.perf_counter()
-        S = min(cfg.engine.valid_step, iters - it)
-        for _ in range(S):
-            batch_stack = [{n: take_batch(train_dev, next(s))
-                            for n, s in streams.items()} for _ in range(K)]
-            metrics = engine.engine_step(
-                batch_stack, take_batch(val_dev, next(val_stream)))
-        it += S
-        with torch.no_grad(), amp():
-            val = float(eval_batch_score(seg.eval_logits(val_images),
-                                         val_masks, seg.n_classes))
-        m_host = {k: float(v) for k, v in metrics.items()}
-        chunks.append({"it": it, "iters": S,
-                       "seconds": time.perf_counter() - t0,
-                       "val_score": val, **m_host})
-        if val > best_val:
-            best_val = val
-            best_unet = snapshot_unet()
-        log.info("it %d: %s val %.4f best %.4f", it, m_host, val, best_val)
-        # plateau stepping every len(train_set) global steps
-        # (train_end2end_jsrt.py:254-255), applied per chunk boundary
-        if (it // max(n_train, 1)) != ((it - S) // max(n_train, 1)):
-            plateau.step(best_val)
+    Run artifacts under ``<save_dir>/<name>``: ``metrics.jsonl`` (losses,
+    ``val_score``, ``best_val`` and ``iters_per_sec`` per interval, the arch
+    tables under ``darts``/``unroll``, the final results), ``ckpt/<it>``
+    (the engine state with the host trajectory: best_val, the iteration,
+    the best U-Net, the plateau; every ``run.save_every`` iterations and at
+    the end with ``run.final_checkpoint``), and ``unet_best.pt``. With
+    ``run.resume`` the run continues from the latest checkpoint exactly as
+    if it had not stopped."""
+    dev = resolve_device(device or cfg.run.device)
+    engine, p2p, seg = build_engine(cfg, dev)
+    amp = autocast_for(cfg, dev)
+    val_metric = seg_metric(cfg)
+    splits = load_splits(cfg)
+    save_dir = os.path.join(cfg.run.save_dir, cfg.run.name)
+    with MetricsLogger(save_dir, cfg.run.wandb, cfg.run.wandb_project,
+                       cfg.run.name, cfg.to_dict()) as log:
+        ckpt = CheckpointManager(os.path.join(save_dir, "ckpt"))
+        # ReduceLROnPlateau(max, patience=5) on the unet's RMSprop
+        # (train_end2end_jsrt.py:73)
+        plateau = torch.optim.lr_scheduler.ReduceLROnPlateau(
+            engine.problems[PROBLEMS.index("unet")].optimizer, mode="max",
+            factor=cfg.optim.plateau_factor,
+            patience=cfg.optim.plateau_patience)
 
-    results = {"best_val": best_val, "chunks": chunks}
-    best_net = copy.deepcopy(seg.net)
-    best_net.load_state_dict(best_unet)
-    if splits["test"] is not None:
-        results["test_dice"] = evaluate_seg(seg, best_net, splits["test"],
-                                            cfg.data.batch_size, amp, dev)
-    os.makedirs(save_dir, exist_ok=True)
-    torch.save(best_unet, os.path.join(save_dir, "unet_best.pt"))
-    log.info("final: %s", {k: v for k, v in results.items()
-                           if k != "chunks"})
-    return engine, results
+        e = cfg.engine
+        _log_mode_notes(log, e)
+
+        K = e.unroll_steps
+        n_train = len(splits["train"]["image"])
+        n_val = len(splits["val"]["image"])
+        train_dev = to_device_split(splits["train"], dev)
+        val_dev = to_device_split(splits["val"], dev)
+        val_images = _nchw(val_dev["image"].float())
+        val_masks = _nchw(val_dev["mask"])
+
+        def snapshot_unet():
+            return {k: v.detach().clone() for k, v in
+                    seg.net.state_dict().items()}
+
+        iters = train_iters or cfg.engine.train_iters
+        best_val, it = 0.0, 0
+        best_unet = snapshot_unet()
+
+        def save_ckpt():
+            # the engine state and the host trajectory beside it: a run
+            # resumed from here continues as the uninterrupted one
+            ckpt.save(it, {"engine": engine.state_dict(),
+                           "host": {"best_val": best_val, "it": it,
+                                    "best_unet": best_unet,
+                                    "plateau": plateau.state_dict()}},
+                      {"val_score": best_val}, force=True)
+
+        if cfg.run.resume:
+            restored, _ = ckpt.restore({"engine": None, "host": None})
+            if restored is not None:
+                engine.load_state_dict(restored["engine"])
+                h = restored["host"]
+                best_val, it = float(h["best_val"]), int(h["it"])
+                best_unet = {k: v.to(dev) for k, v in h["best_unet"].items()}
+                plateau.load_state_dict(h["plateau"])
+                log.info("resumed from checkpoint at step %d", it)
+        streams, val_stream = index_streams(cfg, n_train, n_val, start=it)
+
+        chunks = []
+        timer = StepTimer(skip=1)
+        timer.tick()
+        with trace(cfg.run.profile_dir):
+            while it < iters:
+                t0 = time.perf_counter()
+                S = min(cfg.engine.valid_step, iters - it)
+                for _ in range(S):
+                    batch_stack = [{n: take_batch(train_dev, next(s))
+                                    for n, s in streams.items()}
+                                   for _ in range(K)]
+                    metrics = engine.engine_step(
+                        batch_stack, take_batch(val_dev, next(val_stream)))
+                it += S
+                with torch.no_grad(), amp():
+                    val = float(eval_batch_score(seg.eval_logits(val_images),
+                                                 val_masks, seg.n_classes,
+                                                 val_metric))
+                m_host = {k: float(v) for k, v in metrics.items()}
+                chunks.append({"it": it, "iters": S,
+                               "seconds": time.perf_counter() - t0,
+                               "val_score": val, **m_host})
+                if val > best_val:
+                    best_val = val
+                    best_unet = snapshot_unet()
+                log.info("it %d: %s val %.4f best %.4f", it, m_host, val,
+                         best_val)
+                log.log({**m_host, "val_score": val, "best_val": best_val},
+                        it)
+                if e.hypergrad in ("darts", "unroll"):
+                    # the search's trajectory: the (small) arch tables in full
+                    log.log({f"arch_{k}": v.detach().cpu().tolist()
+                             for k, v in engine.arch.items()}, it)
+                # plateau stepping every len(train_set) global steps
+                # (train_end2end_jsrt.py:254-255), applied per chunk boundary
+                if (it // max(n_train, 1)) != ((it - S) // max(n_train, 1)):
+                    plateau.step(best_val)
+                # after the plateau step, so the checkpoint holds this
+                # iteration's whole state
+                if cfg.run.save_every and it % cfg.run.save_every == 0:
+                    save_ckpt()
+                timer.tick()
+                log.log({"iters_per_sec": timer.steps_per_sec * S}, it)
+
+        if cfg.run.final_checkpoint:
+            save_ckpt()
+        results = {"best_val": best_val}
+        best_net = copy.deepcopy(seg.net)
+        best_net.load_state_dict(best_unet)
+        if splits["test"] is not None:
+            results[f"test_{val_metric}"] = evaluate_split(
+                best_net, splits["test"], cfg.data.batch_size, seg.n_classes,
+                val_metric, amp)
+            results.setdefault("test_dice", results[f"test_{val_metric}"])
+        for name, data in splits["ood"]:
+            results[f"ood_{name}"] = evaluate_split(
+                best_net, data, cfg.data.batch_size, seg.n_classes,
+                val_metric, amp)
+        torch.save(best_unet, os.path.join(save_dir, "unet_best.pt"))
+        log.log(results, it)
+        log.info("final: %s", results)
+        ckpt.wait()
+        return engine, {**results, "chunks": chunks}
 
 
 def main(argv=None):

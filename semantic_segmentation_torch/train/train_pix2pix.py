@@ -2,11 +2,13 @@
 ``semantic_segmentation_tpu/train/train_pix2pix.py``
 (``running_files/train_pix2pix_lung.py:30-104``): the epoch loop of
 ``train_step`` (D then G), the learning-rate policy set at the start of
-every epoch, losses logged every ``run.log_every`` steps, and the G/D/arch
-checkpoint that ``train_end2end --run.pretrained_pix2pix=<dir>`` loads.
+every epoch, losses logged every ``run.log_every`` steps to the metric
+stream ``<save_dir>/<name>/metrics.jsonl``, and the G/D/arch checkpoint that
+``train_end2end --run.pretrained_pix2pix=<dir>`` loads.
 
-Not ported yet: the sample-grid panels, wandb, the colorization branch and
-loading the upstream ``.pkl`` or the JAX package's ``.msgpack`` checkpoints.
+Not ported yet: the sample-grid panels (they need ``utils/visuals.py``), the
+colorization branch and loading the upstream ``.pkl`` or the JAX package's
+``.msgpack`` checkpoints.
 
 Usage: ``python -m semantic_segmentation_torch.train.train_pix2pix
 --preset=pix2pix_jsrt --data.synthetic=true [--run.device=cpu]``.
@@ -23,13 +25,12 @@ import torch
 
 from semantic_segmentation_torch.core.config import (Config, parse_config,
                                                      resolve_device)
+from semantic_segmentation_torch.core.logging_utils import MetricsLogger
 from semantic_segmentation_torch.core.optim import (lr_schedule,
                                                     set_learning_rate)
 from semantic_segmentation_torch.data.pipeline import batch_iterator
 from semantic_segmentation_torch.models.pix2pix.model import Pix2Pix
 from semantic_segmentation_torch.train.common import autocast_for, load_splits
-
-log = logging.getLogger(__name__)
 
 GENERATOR_FILE = "pix2pix_generator.pt"
 DISCRIMINATOR_FILE = "pix2pix_discriminator.pt"
@@ -70,36 +71,39 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
                          epoch_count=o.epoch_count,
                          n_epochs_decay=o.n_epochs_decay,
                          lr_decay_iters=o.lr_decay_iters))
-    step, epoch, records = 0, 0, []
-    max_iters = train_iters or cfg.engine.train_iters
-    last_step, t0 = 0, time.perf_counter()
-    while step < max_iters:
-        if sched is not None:
-            lr_now = sched(epoch + 1)
-            set_learning_rate(model.opt_g, lr_now)
-            set_learning_rate(model.opt_d, lr_now)
-        rng_np = np.random.default_rng((cfg.run.seed, epoch))
-        for batch in batch_iterator(splits["train"], cfg.data.batch_size,
-                                    rng_np):
-            metrics = model.train_step(
-                {k: torch.from_numpy(batch[k]).to(dev)
-                 for k in ("mask_pix2pix", "image_pix2pix")},
-                generator=draw_gen)
-            step += 1
-            if step % cfg.run.log_every == 0:
-                rec = {"step": step, **{k: float(v)
-                                        for k, v in metrics.items()}}
-                rec.update(steps=step - last_step,
-                           seconds=time.perf_counter() - t0)
-                records.append(rec)
-                log.info("step %d: %s", step, rec)
-                last_step, t0 = step, time.perf_counter()
-            if step >= max_iters:
-                break
-        epoch += 1
-        if cfg.run.save_every and epoch % cfg.run.save_every == 0:
-            save_model(model, save_dir)
-    save_model(model, save_dir)
+    with MetricsLogger(save_dir, cfg.run.wandb, cfg.run.wandb_project,
+                       cfg.run.name, cfg.to_dict()) as log:
+        step, epoch, records = 0, 0, []
+        max_iters = train_iters or cfg.engine.train_iters
+        last_step, t0 = 0, time.perf_counter()
+        while step < max_iters:
+            if sched is not None:
+                lr_now = sched(epoch + 1)
+                set_learning_rate(model.opt_g, lr_now)
+                set_learning_rate(model.opt_d, lr_now)
+            rng_np = np.random.default_rng((cfg.run.seed, epoch))
+            for batch in batch_iterator(splits["train"], cfg.data.batch_size,
+                                        rng_np):
+                metrics = model.train_step(
+                    {k: torch.from_numpy(batch[k]).to(dev)
+                     for k in ("mask_pix2pix", "image_pix2pix")},
+                    generator=draw_gen)
+                step += 1
+                if step % cfg.run.log_every == 0:
+                    rec = {"step": step, **{k: float(v)
+                                            for k, v in metrics.items()}}
+                    rec.update(steps=step - last_step,
+                               seconds=time.perf_counter() - t0)
+                    records.append(rec)
+                    log.info("step %d: %s", step, rec)
+                    log.log(metrics, step)
+                    last_step, t0 = step, time.perf_counter()
+                if step >= max_iters:
+                    break
+            epoch += 1
+            if cfg.run.save_every and epoch % cfg.run.save_every == 0:
+                save_model(model, save_dir)
+        save_model(model, save_dir)
     return model, {"steps": step, "epochs": epoch, "log": records}
 
 

@@ -15,6 +15,7 @@
   starts from with ``--run.pretrained_pix2pix``.
 
 The largest gaps are printed (``-s``)."""
+import json
 import os
 
 import jax
@@ -225,8 +226,15 @@ def test_cpu_train_checkpoint_starts_train_end2end(tmp_path):
     assert get_learning_rate(model.opt_g) == sched(3)
     assert get_learning_rate(model.opt_d) == sched(3)
     ckpt = os.path.join(tmp_path, cfg.run.name)
-    assert sorted(os.listdir(ckpt)) == [train_pix2pix.DISCRIMINATOR_FILE,
+    assert sorted(os.listdir(ckpt)) == ["metrics.jsonl",
+                                        train_pix2pix.DISCRIMINATOR_FILE,
                                         train_pix2pix.GENERATOR_FILE]
+    # the metric stream: one record per log_every steps, the losses
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        stream = [json.loads(line) for line in f]
+    assert [r["step"] for r in stream] == [1, 2, 3, 4, 5]
+    for r, rec in zip(stream, results["log"]):
+        assert r["loss_G"] == rec["loss_G"] and r["loss_D"] == rec["loss_D"]
 
     e2e = parse_config(SMALL + ["--data.n_test=2", "--model.base_features=8",
                                 f"--run.save_dir={tmp_path}",

@@ -109,8 +109,8 @@ def test_hypergrad_none_leaves_arch(tmp_path):
         assert torch.equal(v, fresh.arch[k])
 
 
-@pytest.mark.parametrize("argv", [["--run.resume=true"],
-                                  ["--data.dataroot=../data/JSRT"],
+@pytest.mark.parametrize("argv", [["--run.data_axis=data"],
+                                  ["--optim.accumulate=2"],
                                   ["--preset=end2end_isic"]])
 def test_unported_options_are_refused(argv):
     # an option the port does not implement yet fails loudly instead of
