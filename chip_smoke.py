@@ -9,16 +9,19 @@ Phases, each of which stops the script with a nonzero exit on failure:
 2. build: every CUDA source of ``semantic_segmentation_torch/kernels/csrc``
    compiled with nvcc (one process each, in parallel) into build/kernels/;
 3. kernels against their plain PyTorch versions on the card, TF32 off:
-   - warp: (2, 256, 256, 1) binary masks under ``sample_affine_batch``
-     draws and (2, 256, 256, 3) random floats, max |err| 0 and an
-     identical > 0.1 mask; identity and flip matrices exact;
+   - warp: (2, 256, 256, 1) and (2, 224, 224, 1) binary masks under
+     ``sample_affine_batch`` draws and (2, 256, 256, 3) random floats,
+     max |err| 0 and an identical > 0.1 mask; identity and flip matrices
+     exact;
    - equalize and histogram (one thread-block cluster per image): each
      bit-exact against its plain version (the histogram also against
      ``np.bincount``) on random uint8 (2, 256, 256, 1), a constant plane, a
      two-value plane and the uint8 image of a full-width unet_256
-     generator's output (the histogram also at (4, 256, 256)), at c = 3,
-     at hw off multiples of 16, on views 1 byte off a 16-byte boundary,
-     and at (64, 512, 512); each call one launch of one kernel;
+     generator's output (the histogram also at (4, 256, 256)), at c = 3
+     (the ISIC family's interleaved RGB: random bytes and an RGB
+     generator's image at (2, 256, 256, 3) and (2, 224, 224, 3)), at hw
+     off multiples of 16, on views 1 byte off a 16-byte boundary, and at
+     (64, 512, 512); each call one launch of one kernel;
    - down-conv: bf16, within 1e-2 of the plain version's largest magnitude
      at the 9 flagship layers with C_in >= 8 (``bench.conv_down.LAYERS``;
      G_d5's last split-K range is shorter than the others), at M = 2, 8,
@@ -69,6 +72,31 @@ Phases, each of which stops the script with a nonzero exit on failure:
    ``unet_best.pt`` gives the trainer's test and OOD Dice within 1e-6; and
    ``train_unet`` for 20 steps on the folder (finite losses, best_val, a
    checkpoint, no kernel launched, its step rate);
+7c. the ISIC family (``semantic_segmentation_torch`` presets
+   ``pix2pix_isic``, ``end2end_isic``, ``end2end_isic224``): (a) an
+   ISIC-layout folder of RGB PNGs (a dark lesion of about 28% of the image
+   on noisy skin tones) and binary masks at 300^2 (the loader resizes, the
+   masks NEAREST) with a test split; ``pix2pix_isic`` (RGB, ``output_nc``
+   3) for 10 steps from it, its checkpoint saved; (b) ``end2end_isic`` at
+   full width (256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base 64,
+   bf16, ``decay_only``, ``--model.output_nc=3``, the photometric fake
+   chain, the Jaccard loss) from that checkpoint and folder for 20
+   iterations: its test Jaccard at least 0.1 above an all-lesion net's
+   (the net learnt the lesion), and ``test_seg`` on its ``unet_best.pt``
+   gives the trainer's test Jaccard within 1e-6; (c) ``end2end_isic224``
+   at full width on synthetic data (224^2, batch 2, resnet_9blocks ngf 64,
+   D ndf 64, the lite Swin-UNet: embed 96, depths 2-2-2-2, heads
+   3-6-12-24, window 7, drop-path 0.2) for 20 iterations under the
+   preset's own ``darts`` (its hypergradient exactly 0 on every chunk),
+   then under ``decay_only`` for 20, four more ``decay_only`` runs and a
+   ``--model.use_checkpoint=true`` one of 10 iterations from the same seed
+   (the same draws): the darts run's and the recomputed run's losses after
+   10 iterations each within 4 x the largest relative gap between the
+   five ``decay_only`` runs' (the bound of 7b's resume check; the path is
+   not bit-for-bit deterministic on the card).
+   For (b) and (c): finite losses, steady it/s, peak bytes, and the warp
+   and equalize launches (one each per unet inner step: 20 and 20 in 20
+   iterations, 40 and 40 under ``darts``; histogram and down-conv 0);
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -76,10 +104,13 @@ Phases, each of which stops the script with a nonzero exit on failure:
    inputs and then times: the
    warp's and the equalize's device time (torch.profiler) and wrapper call
    time (CUDA events) on the inputs of phase 3, beside their plain
-   versions' and the library call's (``F.grid_sample`` for the warp), and
+   versions' and the library call's (``F.grid_sample`` for the warp, at
+   256^2 and 224^2), and
    the two benchmark entry points that run the other kernels:
    ``bench.kernels`` (the histogram's path, and ``time_cases``: the
    equalize at (2, 256, 256, 1) on the generator image and random bytes,
+   at (2, 256, 256, 3) and (2, 224, 224, 3) on an RGB generator's image
+   and random bytes, warm and cold,
    the histogram at (4, 256, 256) on random and constant images, warm, and
    both at (64, 512, 512) with L2 flushed, each as kernel and as call
    device time beside its bytes bound) and ``bench.conv_down`` (the
@@ -153,26 +184,43 @@ def phase_kernels(torch, dev, G, arch):
                         device=dev).expand(2, 3, 3).contiguous()
     check(torch.equal(augment.warp_affine_batch(rgb, flip),
                       rgb.flip(2)), "warp: flip not exact")
-    print(f"[kernels] warp: max|err| masks {err_mask:.3e} rgb {err_rgb:.3e}, "
-          f"> 0.1 masks identical, identity and flip exact")
+    ds224 = SyntheticSegDataset(n=2, size=224, seed=5)
+    m224 = torch.from_numpy(np.stack([ds224[i]["mask"] for i in range(2)]))
+    m224 = m224.float().to(dev)                              # (2,224,224,1)
+    mats224 = augment.sample_affine_batch(2, 224, 224, gen)
+    k224 = augment.warp_affine_batch(m224, mats224)
+    r224 = augment.warp_affine_batch_ref(m224, mats224)
+    err_224 = (k224 - r224).abs().max().item()
+    check(err_224 == 0.0, f"warp masks 224^2: max |err| {err_224}")
+    check(torch.equal(k224 > 0.1, r224 > 0.1), "warp masks 224^2: > 0.1 "
+          "differs")
+    print(f"[kernels] warp: max|err| masks {err_mask:.3e} masks 224^2 "
+          f"{err_224:.3e} rgb {err_rgb:.3e}, > 0.1 masks identical, "
+          f"identity and flip exact")
 
     # library yardstick: grid_sample on the same warp (align_corners=True
     # maps pixel centres as the kernel does)
-    inv = torch.linalg.inv(mats)
-    ys, xs = torch.meshgrid(torch.arange(256., device=dev),
-                            torch.arange(256., device=dev), indexing="ij")
-    sx = inv[:, 0, 0, None, None] * xs + (inv[:, 0, 1, None, None] * ys
-                                          + inv[:, 0, 2, None, None])
-    sy = inv[:, 1, 0, None, None] * xs + (inv[:, 1, 1, None, None] * ys
-                                          + inv[:, 1, 2, None, None])
-    grid = torch.stack([sx / 127.5 - 1.0, sy / 127.5 - 1.0], -1)
-    masks_nchw = masks.permute(0, 3, 1, 2)
+    def lib_warp_fn(x, m):
+        size = x.shape[1]
+        inv = torch.linalg.inv(m)
+        ys, xs = torch.meshgrid(torch.arange(float(size), device=dev),
+                                torch.arange(float(size), device=dev),
+                                indexing="ij")
+        sx = inv[:, 0, 0, None, None] * xs + (inv[:, 0, 1, None, None] * ys
+                                              + inv[:, 0, 2, None, None])
+        sy = inv[:, 1, 0, None, None] * xs + (inv[:, 1, 1, None, None] * ys
+                                              + inv[:, 1, 2, None, None])
+        half = (size - 1) / 2.0
+        grid = torch.stack([sx / half - 1.0, sy / half - 1.0], -1)
+        x_nchw = x.permute(0, 3, 1, 2)
+        return lambda: F.grid_sample(x_nchw, grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True)
 
-    def lib_warp():
-        return F.grid_sample(masks_nchw, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
-
+    lib_warp = lib_warp_fn(masks, mats)
+    lib_warp224 = lib_warp_fn(m224, mats224)
     err_lib = (lib_warp().permute(0, 2, 3, 1) - out_r).abs().max().item()
+    err_lib224 = (lib_warp224().permute(0, 2, 3, 1)
+                  - r224).abs().max().item()
     numel = masks.numel()
     # image read + output written (f32) + the (2, 3, 3) f32 matrices;
     # ~20 f32 operations per output
@@ -182,12 +230,23 @@ def phase_kernels(torch, dev, G, arch):
         "name": "warp_affine", "route": "cuda",
         "source": "semantic_segmentation_torch/kernels/csrc/warp_affine.cu",
         "replaces": "semantic_segmentation_tpu/ops/pallas_kernels.py:243",
-        "max_abs_err": max(err_mask, err_rgb),
+        "max_abs_err": max(err_mask, err_rgb, err_224),
         "bound_ms": b, "bound_us": b * 1e3, "bound_by": why,
         "shape": [2, 256, 256, 1], "library_max_abs_err": err_lib}
     timers["warp_affine"] = (
         "warp_affine_kernel", lambda: augment.warp_affine_batch(masks, mats),
         lambda: augment.warp_affine_batch_ref(masks, mats), lib_warp)
+    # the ISIC224 trainer's shape, timed as a case of the warp's record
+    b224, why224 = bound_ms(2 * 4 * m224.numel() + mats224.numel() * 4,
+                            20 * m224.numel())
+    records["warp_affine"]["cases"] = [{
+        "shape": [2, 224, 224, 1], "max_abs_err": err_224,
+        "bound_ms": b224, "bound_by": why224,
+        "library_max_abs_err": err_lib224}]
+    timers["warp_affine@224"] = (
+        "warp_affine_kernel",
+        lambda: augment.warp_affine_batch(m224, mats224),
+        lambda: augment.warp_affine_batch_ref(m224, mats224), lib_warp224)
 
     # -- equalize and histogram (one cluster kernel each) -------------------
     fake_mask = image.threshold_mask(out_k, 0.1)
@@ -229,7 +288,8 @@ def phase_cluster_check(torch, dev, gen_img):
     import numpy as np
 
     from semantic_segmentation_torch import kernels
-    from semantic_segmentation_torch.bench.kernels import SYMBOLS, family
+    from semantic_segmentation_torch.bench.kernels import (SYMBOLS, family,
+                                                           generator_image)
     from semantic_segmentation_torch.bench.timing import call_kernels
     from semantic_segmentation_torch.ops import image
 
@@ -245,6 +305,10 @@ def phase_cluster_check(torch, dev, gen_img):
     cases["generator"] = gen_img
     cases["random c=3"] = family("random", (2, 256, 256, 3), dev)
     cases["two_value c=3"] = family("two_value", (2, 256, 256, 3), dev)
+    # the ISIC family's RGB fakes: unet_256 at 256^2, resnet_9blocks at 224^2
+    cases["generator c=3"] = generator_image(dev, 256, 3)
+    cases["generator c=3 224^2"] = generator_image(dev, 224, 3)
+    cases["random c=3 224^2"] = family("random", (2, 224, 224, 3), dev)
     cases["random 250^2"] = family("random", (2, 250, 250, 1), dev)
     cases["random unaligned"] = unaligned(family("random", (2, 256, 256, 1),
                                                  dev, seed=1))
@@ -347,12 +411,15 @@ def phase_timing(records, timers):
     the trainer's measurement."""
     from semantic_segmentation_torch.bench.timing import device_ms, time_ms
     for name, (symbol, kernel_fn, plain_fn, lib_fn) in timers.items():
-        records[name].update({
+        kernel, _, case = name.partition("@")
+        # "kernel@case": a further shape, timed into the kernel's cases
+        rec = records[kernel]["cases"][0] if case else records[kernel]
+        rec.update({
             "ms": device_ms(kernel_fn, 200, symbol),
             "wrapper_call_ms": time_ms(kernel_fn, 200),
             "plain_ms": device_ms(plain_fn, 50),
             "library_ms": device_ms(lib_fn, 200) if lib_fn else None})
-        print(f"[timing] {name}: " + json.dumps(records[name]))
+        print(f"[timing] {name}: " + json.dumps(rec))
 
 
 def phase_fake_branch(torch, dev, G, arch, masks_warp_in, mats):
@@ -855,6 +922,238 @@ def phase_real_data(torch, ckpt, synthetic: dict):
     return stats
 
 
+ISIC_DIR = DATA_DIR / "isic"
+ISIC_SPLIT = ["--data.n_train=16", "--data.n_val=4"]
+ISIC_PIX2PIX_STEPS, ISIC_CKPT_ITERS = 10, 10
+ISIC_LOSSES = ("loss_netG", "loss_netD", "loss_unet", "replay_loss_netG",
+               "replay_loss_netD", "replay_loss_unet")
+
+
+def write_isic_folder(n: int = 28, size: int = 300):
+    """An ISIC-layout folder at ``size``^2: RGB PNGs of a dark-brown lesion
+    (one rotated ellipse, about 28% of the image) on noisy skin tones, and
+    its 0/255 mask. The contrast lets a U-Net learn the lesion in the
+    trainer's 20 iterations, so that its test Jaccard tells its net from a
+    trivial one."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+    shutil.rmtree(ISIC_DIR, ignore_errors=True)
+    (ISIC_DIR / "Images").mkdir(parents=True)
+    (ISIC_DIR / "Masks").mkdir()
+    rng = np.random.default_rng(23)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        cx, cy = rng.uniform(0.4, 0.6, 2)
+        ax, ay = rng.uniform(0.25, 0.35, 2)
+        th = rng.uniform(-0.6, 0.6)
+        xr = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+        yr = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
+        lesion = (xr / ax) ** 2 + (yr / ay) ** 2 < 1
+        skin = rng.uniform(0.9, 1.1) * np.array([225, 180, 150], np.float32)
+        brown = rng.uniform(0.8, 1.2) * np.array([110, 65, 45], np.float32)
+        rgb = np.where(lesion[..., None], brown, skin) + rng.normal(
+            0.0, 12.0, (size, size, 3))
+        Image.fromarray(np.clip(rgb, 0, 255).astype(np.uint8), "RGB").save(
+            ISIC_DIR / "Images" / f"ISIC_{i:07d}.png")
+        Image.fromarray((lesion * 255).astype(np.uint8), "L").save(
+            ISIC_DIR / "Masks" / f"ISIC_{i:07d}.png")
+    return ISIC_DIR
+
+
+def trivial_jaccard(torch, cfg) -> float:
+    """The test Jaccard of a net that marks every pixel lesion (the best of
+    the two constant nets: one that marks none scores about 0)."""
+    from semantic_segmentation_torch.ops.losses import jaccard_index
+    from semantic_segmentation_torch.train.common import load_splits
+    masks = torch.from_numpy(load_splits(cfg)["test"]["mask"][..., 0])
+    return float(jaccard_index(masks, torch.ones_like(masks)))
+
+
+def _isic_train(torch, cfg, iters: int, label: str):
+    """train() of an ISIC configuration on the card: finite losses and
+    scores, the warp and the equalize launched once per unet inner step
+    (``decay_only``: one per iteration; ``darts``: two, the unroll's and
+    the replay's), the other kernels never; the darts hypergradient
+    exactly 0 (outer loss on the unet only, child netG). Returns
+    (results, stats)."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.train.train_end2end import train
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    engine, results = train(cfg, train_iters=iters, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    darts = cfg.engine.hypergrad == "darts"
+    unet_steps = iters * (2 if darts else 1)
+    want = {"warp_affine": unet_steps, "equalize_uint8": unet_steps,
+            "histogram256": 0, "conv_down4": 0}
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+    for c in results["chunks"]:
+        for k in ISIC_LOSSES + ("val_score",) + (("outer_loss",) if darts
+                                                 else ()):
+            check(math.isfinite(c[k]), f"{label}: {k} not finite: {c}")
+        check(not darts or c["arch_grad_norm"] == 0.0,
+              f"{label}: darts hypergradient not exactly 0: {c}")
+    check(math.isfinite(results["best_val"]),
+          f"{label}: no best_val: {results}")
+    del engine
+    torch.cuda.empty_cache()
+    steady = results["chunks"][1:] or results["chunks"]
+    its = sum(c["iters"] for c in steady) / sum(c["seconds"] for c in steady)
+    return results, {"hypergrad": cfg.engine.hypergrad,
+                     "iters": iters, "wall_s": wall,
+                     "steady_it_per_s": its, "steady_iter_ms": 1e3 / its,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "best_val": results["best_val"], "launches": launches}
+
+
+def phase_isic(torch):
+    """Phase 7c (module docstring). Returns {label: stats}."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import test_seg, train_pix2pix
+    root = write_isic_folder()
+    out = {}
+
+    # (a) stage 1 on the RGB folder
+    cfg = parse_config([f"--data.dataroot={root}", *ISIC_SPLIT,
+                        "--run.log_every=5", f"--run.save_dir={SAVE_DIR}"],
+                       preset="pix2pix_isic")
+    m = cfg.model
+    check((cfg.data.dataset, cfg.data.image_size, cfg.data.batch_size,
+           m.netG, m.ngf, m.ndf, m.output_nc, m.compute_dtype) ==
+          ("isic", 256, 2, "unet_256", 64, 64, 3, "bfloat16"),
+          "isic pix2pix: not the full-width pix2pix_isic configuration")
+    kernels.reset_launches()
+    model, res = train_pix2pix.train(cfg, train_iters=ISIC_PIX2PIX_STEPS,
+                                     device="cuda")
+    check(not any(kernels.LAUNCHES.values()),
+          f"isic pix2pix: launches {dict(kernels.LAUNCHES)}")
+    check(all(math.isfinite(r[k]) for r in res["log"]
+              for k in ("loss_G", "loss_D")),
+          f"isic pix2pix: losses {res['log']}")
+    ckpt = SAVE_DIR / cfg.run.name
+    del model
+    torch.cuda.empty_cache()
+    print(f"[isic pix2pix] {res['steps']} steps at output_nc 3 from "
+          f"{root}: last losses {res['log'][-1]}")
+
+    # (b) end2end_isic at full width from the folder and the checkpoint
+    cfg = parse_config([f"--data.dataroot={root}", *ISIC_SPLIT,
+                        "--data.n_test=8", "--model.output_nc=3",
+                        f"--engine.valid_step={VALID_STEP}",
+                        f"--run.pretrained_pix2pix={ckpt}",
+                        "--run.final_checkpoint=false",
+                        f"--run.save_dir={SAVE_DIR}"], preset="end2end_isic")
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.base_features, m.output_nc, m.compute_dtype,
+           cfg.engine.hypergrad, cfg.engine.fake_postprocess) ==
+          (256, 2, "unet_256", 64, 64, 64, 3, "bfloat16", "decay_only",
+           "photometric"), "isic: not the full-width end2end_isic "
+          "configuration")
+    results, stats = _isic_train(torch, cfg, TRAIN_ITERS, "isic")
+    check("test_jaccard" in results and math.isfinite(
+        results["test_jaccard"]), f"isic: no test_jaccard: {results}")
+    # the net learnt the lesion: a constant net could not tell test_seg's
+    # loaded net from another
+    trivial = trivial_jaccard(torch, cfg)
+    check(results["test_jaccard"] >= trivial + 0.1,
+          f"isic: test Jaccard {results['test_jaccard']} not above the "
+          f"all-lesion net's {trivial} + 0.1")
+    scored = test_seg.run(cfg, model_file=str(SAVE_DIR / cfg.run.name /
+                                              "unet_best.pt"), device="cuda")
+    check(abs(scored["test_jaccard"] - results["test_jaccard"]) <= 1e-6,
+          f"isic test_seg: {scored} against the trainer's "
+          f"{results['test_jaccard']}")
+    stats.update(test_jaccard=results["test_jaccard"],
+                 test_seg_jaccard=scored["test_jaccard"],
+                 all_lesion_jaccard=trivial)
+    out["isic_trainer"] = stats
+    print(f"[isic] steady {stats['steady_it_per_s']:.2f} it/s, peak "
+          f"{stats['peak_mem_bytes']} bytes, launches {stats['launches']}; "
+          f"test_seg Jaccard {scored['test_jaccard']:.6f} equals the "
+          f"trainer's {results['test_jaccard']:.6f} (an all-lesion net "
+          f"scores {trivial:.6f})")
+
+    # (c) end2end_isic224: ResNet-9 G, the lite Swin-UNet, synthetic data;
+    # the preset's own darts, then decay_only runs beside it
+    def cfg224(name, *extra):
+        return parse_config(["--data.synthetic=true",
+                             f"--engine.valid_step={VALID_STEP}",
+                             "--run.final_checkpoint=false",
+                             f"--run.save_dir={SAVE_DIR}",
+                             f"--run.name={name}", *extra],
+                            preset="end2end_isic224")
+    cfg = cfg224("isic224-darts")
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.seg_model, m.drop_path_rate, m.use_checkpoint, m.compute_dtype,
+           cfg.engine.fake_postprocess, cfg.engine.hypergrad) ==
+          (224, 2, "resnet_9blocks", 64, 64, "vit", 0.2, False, "bfloat16",
+           "photometric", "darts"), "isic224: not the full-width "
+          "end2end_isic224 configuration")
+    run_d, stats = _isic_train(torch, cfg, TRAIN_ITERS, "isic224")
+    decay = ["--engine.hypergrad=decay_only"]
+    run_a, decay_stats = _isic_train(torch, cfg224("isic224-a", *decay),
+                                     TRAIN_ITERS, "isic224 decay_only")
+    plain = [run_a["chunks"][0]] + [
+        _isic_train(torch, cfg224(f"isic224-{x}", *decay), ISIC_CKPT_ITERS,
+                    f"isic224 decay_only run {x}")[0]["chunks"][0]
+        for x in ("b", "c", "d", "e")]
+    run_k, ckpt_stats = _isic_train(
+        torch, cfg224("isic224-k", *decay, "--model.use_checkpoint=true"),
+        ISIC_CKPT_ITERS, "isic224 use_checkpoint")
+
+    def gap(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                   for k in ISIC_LOSSES)
+    # the spread of the losses over the ten pairs of decay_only runs (with
+    # three runs, two of them close by chance gave too small a spread);
+    # the darts run (whose hypergradient is 0, so that its replay is
+    # decay_only's iteration and its unroll differs by the arch tables,
+    # which the ResNet generator does not read) and the recomputed run
+    # against each decay_only run within 4 x that, the bound of phase 7b's
+    # resume check
+    spread = max(gap(a, b) for i, a in enumerate(plain)
+                 for b in plain[i + 1:])
+    darts_gap = max(gap(p, run_d["chunks"][0]) for p in plain)
+    check(darts_gap <= 4.0 * spread, f"isic224: darts moved the losses by "
+          f"{darts_gap:.3e} from decay_only's, beyond 4 x the run-to-run "
+          f"spread {spread:.3e}: {plain} against {run_d['chunks'][0]}")
+    ckpt_gap = max(gap(p, run_k["chunks"][0]) for p in plain)
+    check(ckpt_gap <= 4.0 * spread, f"isic224: use_checkpoint moved the "
+          f"losses by {ckpt_gap:.3e}, beyond 4 x the run-to-run spread "
+          f"{spread:.3e}: {plain} against {run_k['chunks'][0]}")
+    stats.update(losses_after_10={
+        "darts": {k: run_d["chunks"][0][k] for k in ISIC_LOSSES},
+        "use_checkpoint": {k: run_k["chunks"][0][k] for k in ISIC_LOSSES},
+        "decay_only": [{k: c[k] for k in ISIC_LOSSES} for c in plain]})
+    stats.update(run_to_run_spread=spread, darts_gap=darts_gap,
+                 use_checkpoint_gap=ckpt_gap,
+                 decay_only_it_per_s=decay_stats["steady_it_per_s"],
+                 decay_only_peak_mem_bytes=decay_stats["peak_mem_bytes"],
+                 decay_only_launches=decay_stats["launches"],
+                 use_checkpoint_peak_mem_bytes=ckpt_stats["peak_mem_bytes"],
+                 use_checkpoint_it_per_s=ckpt_stats["steady_it_per_s"])
+    out["isic224_trainer"] = stats
+    print(f"[isic224] darts (the preset's): steady "
+          f"{stats['steady_it_per_s']:.2f} it/s, peak "
+          f"{stats['peak_mem_bytes']} bytes, launches {stats['launches']}; "
+          f"decay_only: {decay_stats['steady_it_per_s']:.2f} it/s, peak "
+          f"{decay_stats['peak_mem_bytes']} bytes, launches "
+          f"{decay_stats['launches']}; largest relative loss gap to "
+          f"decay_only: darts {darts_gap:.3e}, use_checkpoint "
+          f"{ckpt_gap:.3e} (run-to-run spread of {len(plain)} decay_only "
+          f"runs {spread:.3e}); use_checkpoint peak "
+          f"{ckpt_stats['peak_mem_bytes']} bytes")
+    return out
+
+
 def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
     ``bench.kernels`` (the histogram, at (4, 256, 256), then the cluster
@@ -1038,6 +1337,11 @@ def main() -> int:
     folder = phase_real_data(torch, ckpt, trainer_stats["end2end_trainer"])
     print(f"[folder_trainer] {card}: " + json.dumps(folder))
     paths["folder_trainer"] = folder["launches"]
+
+    # 7c. the ISIC family
+    for label, stats in phase_isic(torch).items():
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        paths[label] = stats["launches"]
 
     # 8. timing and the benchmark paths, in a fresh process
     records, bench_paths = run_timing_child()

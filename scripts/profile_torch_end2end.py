@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's flagship engine iteration spends its time on
+"""Where the PyTorch port's end-to-end engine iteration spends its time on
 the GPU.
 
     python3 scripts/profile_torch_end2end.py [--preset end2end_jsrt]
         [--hypergrad darts] [--iters 30] [--profile-iters 5]
         [--out build/profile_torch_end2end.json]
 
-Builds the engine of ``--preset`` (``end2end_jsrt`` or ``end2end_nas``; its
-hypergradient mode, or ``--hypergrad``) of ``semantic_segmentation_torch``
-at full width (256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base 64, bf16
+Builds the engine of ``--preset`` (``end2end_jsrt``, ``end2end_nas``,
+``end2end_isic`` or ``end2end_isic224``; its hypergradient mode, or
+``--hypergrad``) of ``semantic_segmentation_torch`` at the preset's full
+width (the flagship's: 256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base
+64; ``end2end_isic224``: 224^2, resnet_9blocks, the lite Swin-UNet; bf16
 autocast, synthetic data), warms it up, times ``--iters`` engine iterations
 (host clock, ending in a device sync), then traces ``--profile-iters`` more
 with ``torch.profiler`` and reports: device busy and idle share of the
@@ -34,6 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CATEGORIES = (   # first match wins; matched against the lower-cased name
     ("port kernels (warp, equalize)", ("warp_affine_kernel",
                                        "equalize_kernel")),
+    ("attention (softmax)", ("softmax",)),
     ("conv / gemm", ("conv", "gemm", "xmma", "cutlass", "sm90_", "sm80_",
                      "cudnn", "implicit", "wgrad", "dgrad", "nchwtonhwc",
                      "nhwctonchw")),
@@ -67,7 +70,8 @@ def union_us(intervals):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="end2end_jsrt",
-                    choices=("end2end_jsrt", "end2end_nas"))
+                    choices=("end2end_jsrt", "end2end_nas", "end2end_isic",
+                             "end2end_isic224"))
     ap.add_argument("--hypergrad", default=None,
                     choices=("darts", "unroll", "decay_only", "none"),
                     help="default: the preset's")
@@ -158,9 +162,12 @@ def main() -> int:
     P = args.profile_iters
     report = {
         "card": card, "torch": torch.__version__,
-        "config": f"{args.preset}, hypergrad {cfg.engine.hypergrad}, 256^2, "
-                  "batch 2, unet_256, ngf=ndf=64, U-Net base 64, bf16 "
-                  "autocast, synthetic",
+        "config": f"{args.preset}, hypergrad {cfg.engine.hypergrad}, "
+                  f"{cfg.data.image_size}^2, batch {cfg.data.batch_size}, "
+                  f"{cfg.model.netG}, ngf=ndf={cfg.model.ngf}, "
+                  f"segmenter {cfg.model.seg_model}, "
+                  f"{cfg.engine.fake_postprocess} fakes, bf16 autocast, "
+                  "synthetic",
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "timed_iters": args.iters,
         "host_it_per_s": args.iters / host_s,

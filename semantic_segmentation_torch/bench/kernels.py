@@ -7,7 +7,10 @@ wrapper's call time (CUDA events, host work included) is beside them.
 
 Then the two cluster kernels at the shapes that measure them
 (``time_cases``): the equalize at the trainer's (2, 256, 256, 1) on a
-full-width generator's image and on random bytes, the histogram at
+full-width generator's image and on random bytes, and at the ISIC
+family's three interleaved channels, (2, 256, 256, 3) and (2, 224, 224, 3),
+on an RGB generator's image and on random bytes, warm and cold; the
+histogram at
 (4, 256, 256) on random and constant images, each warm, and both at
 (64, 512, 512) cold (L2 flushed before each call), where a share of the
 HBM bound means something. Each case gives the kernel's device time, the
@@ -57,18 +60,20 @@ def inputs():
 ITERS = 200                     # timed kernel calls; a quarter for plain
 
 
-def generator_image(dev="cuda"):
-    """(2, 256, 256, 1) uint8: the fake-image branch's input to the
-    equalize, a full-width unet_256 generator (random weights from seed 0)
-    on two thresholded synthetic masks, min-max normalised and quantised as
-    the trainer does."""
+def generator_image(dev="cuda", size: int = 256, channels: int = 1):
+    """(2, size, size, channels) uint8: the fake-image branch's input to the
+    equalize, a full-width generator (random weights from seed 0; unet_256
+    at 256^2, the ISIC224 preset's resnet_9blocks at other sizes) on two
+    thresholded synthetic masks, min-max normalised and quantised as the
+    trainer does."""
     from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
     from semantic_segmentation_torch.models.pix2pix.networks import define_G
     from semantic_segmentation_torch.ops.nas import init_arch_params
     init = torch.Generator().manual_seed(0)
-    G = define_G(1, 1, "unet_256", 64, True, init).to(dev).eval()
+    netG = "unet_256" if size == 256 else "resnet_9blocks"
+    G = define_G(1, channels, netG, 64, True, init).to(dev).eval()
     arch = init_arch_params(init)["upconv"].to(dev)
-    ds = SyntheticSegDataset(n=2, size=256, seed=3)
+    ds = SyntheticSegDataset(n=2, size=size, seed=3)
     masks = torch.from_numpy(np.stack([ds[i]["mask"] for i in range(2)]))
     mask = image.threshold_mask(masks.float().to(dev), 0.1)
     with torch.no_grad():
@@ -96,10 +101,15 @@ def family(name: str, shape, dev="cuda", seed: int = 0):
 
 
 # (kernel, family, shape, cold): the shapes that measure the cluster
-# kernels. Warm at the trainer's and the benchmark's shapes; cold at
-# (64, 512, 512), whose 16.8 MB could otherwise be served from the 50 MB L2.
+# kernels. Warm at the trainers' and the benchmark's shapes (the ISIC
+# family's C = 3 also cold); cold at (64, 512, 512), whose 16.8 MB could
+# otherwise be served from the 50 MB L2.
+ISIC_CASES = [("equalize_uint8", fam, (2, hw, hw, 3), cold)
+              for hw in (256, 224) for fam in ("generator_image", "random")
+              for cold in (False, True)]
 CASES = [("equalize_uint8", "generator_image", (2, 256, 256, 1), False),
          ("equalize_uint8", "random", (2, 256, 256, 1), False),
+         *ISIC_CASES,
          ("equalize_uint8", "random", (64, 512, 512, 1), True),
          ("equalize_uint8", "generator_like", (64, 512, 512, 1), True),
          ("histogram256", "random", (4, 256, 256), False),
@@ -125,13 +135,18 @@ def time_cases(gen_image=None, iters: int = ITERS):
     as many cold): the kernel's device time per call (``kernel_ms``), the
     call's (``call_ms``: every kernel the wrapper launches, a zeroing fill
     included), the bound and the share of it the kernel reaches.
-    ``gen_image``: the generator image (made here if not given)."""
+    ``gen_image``: the (2, 256, 256, 1) generator image (made here if not
+    given, as are the RGB ones)."""
     fns = {"equalize_uint8": image.equalize_uint8,
            "histogram256": image.histogram256}
     records = []
+    made = {} if gen_image is None else {(256, 1): gen_image}
     for kernel, fam, shape, cold in CASES:
         if fam == "generator_image":
-            x = gen_image if gen_image is not None else generator_image()
+            key = (shape[1], shape[3])
+            if key not in made:
+                made[key] = generator_image(size=key[0], channels=key[1])
+            x = made[key]
         else:
             x = family(fam, shape)
         fn = fns[kernel]

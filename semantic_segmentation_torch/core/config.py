@@ -39,11 +39,12 @@ class DataConfig:
 class ModelConfig:
     """Generator/discriminator/segnet choices (options/base_options.py:28-38,
     train_end2end_jsrt.py:61-64)."""
-    seg_model: str = "unet"
-    netG: str = "unet_256"
-    netD: str = "basic"
+    seg_model: str = "unet"          # unet | vit (swin, swin_unet)
+    netG: str = "unet_256"           # unet_{256,...,32} | resnet_{9,6}blocks
+    netD: str = "basic"              # basic | n_layers | pixel
     ngf: int = 64
     ndf: int = 64
+    n_layers_D: int = 3
     norm: str = "batch"
     no_dropout: bool = False
     input_nc: int = 1
@@ -51,6 +52,12 @@ class ModelConfig:
     classes: int = 1
     bilinear: bool = False
     base_features: int = 64          # U-Net width (64 = reference)
+    # Swin-UNet stochastic depth (swin_tiny_patch4_window7_224_lite.yaml:4
+    # DROP_PATH_RATE; applied per block at reference :209-210, :662-664)
+    drop_path_rate: float = 0.2
+    # --use-checkpoint (train_options.py:87): recompute each Swin block's
+    # activations in the backward (torch.utils.checkpoint)
+    use_checkpoint: bool = False
     compute_dtype: str = "bfloat16"  # torch.autocast dtype; 'float32' = off
 
 
@@ -86,7 +93,7 @@ class EngineConfig:
     hypergrad: str = "darts"         # darts | unroll | decay_only | none
     darts_epsilon: float = 0.01      # finite-difference r / ||v||
     detach_fakes: bool = True        # reference detaches G(fakes) in unet step
-    fake_postprocess: str = "uint8_chain"  # uint8_chain | minmax
+    fake_postprocess: str = "uint8_chain"  # uint8_chain | photometric | minmax
     # darts children of the arch problem (Betty u2l edges); the reference
     # wiring's ('netG',) makes the darts hypergradient structurally zero
     arch_children: tuple = ("netG",)
@@ -139,6 +146,30 @@ PRESETS: dict[str, dict[str, Any]] = {
     "pix2pix_jsrt": {"optim.lr": 2e-5, "engine.train_iters": 8000,
                      "data.n_train": 80, "data.n_val": 20, "data.n_test": 0,
                      "run.name": "pix2pix-JSRT"},
+    # scripts/train_pix2pix_isic.sh: the stage-1 run at output_nc 3 on
+    # ISIC2018
+    "pix2pix_isic": {"optim.lr": 2e-5, "engine.train_iters": 8000,
+                     "data.dataset": "isic", "data.n_train": 80,
+                     "data.n_val": 20, "data.n_test": 0,
+                     "model.output_nc": 3, "run.name": "pix2pix-ISIC"},
+    # scripts/train_end2end_isic.sh: 40 labeled (32+8), 594 test, Jaccard
+    # loss; fakes post-processed by the fake_trans photometric chain
+    # (train_end2end_isic.py:178-183, applied :264). output_nc stays 1 as
+    # in the JAX preset: an RGB run passes --model.output_nc=3.
+    "end2end_isic": {"data.dataset": "isic", "data.n_train": 32,
+                     "data.n_val": 8, "data.n_test": 594,
+                     "engine.fake_postprocess": "photometric",
+                     "engine.hypergrad": "decay_only",
+                     "run.name": "end2end-ISIC-40-unet"},
+    # the Swin-UNet ISIC variant (util/ISIC_224_loader.py + --seg_model
+    # vit): 224 inputs, the ResNet generator (any size) instead of the
+    # 256-only unet G
+    "end2end_isic224": {"data.dataset": "isic224", "data.image_size": 224,
+                        "data.n_train": 32, "data.n_val": 8,
+                        "data.n_test": 594, "model.seg_model": "vit",
+                        "model.netG": "resnet_9blocks",
+                        "engine.fake_postprocess": "photometric",
+                        "run.name": "end2end-ISIC224-swin"},
     # live architecture search: the exact unrolled hypergradient through the
     # generator into the arch tables
     "end2end_nas": {"engine.hypergrad": "unroll",

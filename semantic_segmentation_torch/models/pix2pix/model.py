@@ -40,7 +40,8 @@ class Pix2Pix:
     in float32 outside it)."""
 
     def __init__(self, input_nc=1, output_nc=1, ngf=64, ndf=64,
-                 netG="unet_256", netD="basic", use_dropout=True,
+                 netG="unet_256", netD="basic", n_layers_D=3,
+                 use_dropout=True,
                  gan_mode="vanilla", lambda_L1=100.0, lr=2e-4, beta1=0.5,
                  arch_lr=1e-4, amp=None,
                  device="cpu", generator: torch.Generator | None = None):
@@ -51,8 +52,8 @@ class Pix2Pix:
         # weights are drawn on the CPU generator, then moved
         self.G = define_G(input_nc, output_nc, netG, ngf, use_dropout,
                           generator).to(device)
-        self.D = define_D(input_nc + output_nc, netD, ndf,
-                          generator=generator).to(device)
+        self.D = define_D(input_nc + output_nc, netD, ndf, n_layers_D,
+                          generator).to(device)
         self.arch = {k: v.to(device) for k, v in
                      nas.init_arch_params(generator).items()}
 
@@ -172,7 +173,10 @@ class Pix2Pix:
                                          keep_stats=False)
             loss = gan_loss(pred_fake, True, self.gan_mode) + \
                 self.lambda_L1 * l1_loss(fake, image)
-            (grad,) = torch.autograd.grad(loss, up)
+            # a ResNet generator does not read the tables: zero gradient
+            (grad,) = torch.autograd.grad(loss, up, allow_unused=True)
+        if grad is None:
+            grad = torch.zeros_like(up)
         for k, a in self.arch.items():
             a.grad = grad if k == "upconv" else torch.zeros_like(a)
         self.opt_arch.step()

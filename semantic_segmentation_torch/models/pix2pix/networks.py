@@ -1,16 +1,21 @@
-"""Pix2Pix generator and discriminator with embedded DARTS cells — the port
-of ``semantic_segmentation_tpu/models/pix2pix/networks.py`` for the
-flagship's two nets:
+"""Pix2Pix generators and discriminators with embedded DARTS cells — the
+port of ``semantic_segmentation_tpu/models/pix2pix/networks.py``:
 
 - ``UnetGenerator`` (``models_pix2pix/networks.py:514-617``): the recursive
   skip U-Net with 4x4 stride-2 down-convs, every up-conv a searchable mixed
   op, BN on the interior downs/ups, dropout(0.5) on the interior ngf*8 ups,
   tanh head.
-- ``NLayerDiscriminator`` (``:620-665``): the 70x70 PatchGAN.
+- ``ResnetGenerator`` (``:321-439``): reflection-padded 7x7 stem, two
+  stride-2 downs, n residual blocks (dropout(0.5) between their convs),
+  two transposed-conv ups, tanh head. Any input size divisible by 4.
+- ``NLayerDiscriminator`` (``:620-665``): the 70x70 PatchGAN;
+  ``PixelDiscriminator`` (``:668-697``): the 1x1 PatchGAN.
 
 NCHW. Submodule names are the JAX package's (``down{d}``, ``down_bn{d}``,
-``up{d}``, ``up_bn{d}``; ``conv{n}``, ``bn{n}``, ``head``) so the weight
-bridge maps the trees leaf by leaf.
+``up{d}``, ``up_bn{d}``; ``stem``, ``res{i}``; ``conv{n}``, ``bn{n}``,
+``head``) so the weight bridge maps the trees leaf by leaf. Norm is batch
+norm, so convs followed by one carry no bias (``use_bias`` of the JAX
+package is ``norm == 'instance'``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,14 @@ import torch.nn.functional as F
 
 from semantic_segmentation_torch.ops.layers import BatchNorm2d, pix2pix_normal_
 from semantic_segmentation_torch.ops.nas import MixedConvTranspose, arch_softmax
+
+
+def _dropout(h, keep, generator):
+    """Dropout(0.5) as flax applies it: the keep-mask ``keep`` if given,
+    else one drawn from ``generator``; kept values doubled."""
+    if keep is None:
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.5
+    return torch.where(keep, h * 2.0, torch.zeros_like(h))
 
 
 def dropout_depths(num_downs: int):
@@ -81,13 +94,77 @@ class UnetGenerator(nn.Module):
             return torch.tanh(h.float())
         h = getattr(self, f"up_bn{d}")(h)
         if self.training and self.use_dropout and d in dropout_depths(nd):
-            if dropout_masks is not None:
-                keep = dropout_masks[d]
-            else:
-                keep = torch.rand(h.shape, generator=generator,
-                                  device=h.device) < 0.5
-            h = torch.where(keep, h * 2.0, torch.zeros_like(h))
+            h = _dropout(h, None if dropout_masks is None
+                         else dropout_masks[d], generator)
         return torch.cat([skip, h.to(skip.dtype)], dim=1)
+
+
+def _reflect(x, p: int):
+    return F.pad(x, [p, p, p, p], mode="reflect")
+
+
+class ResnetBlock(nn.Module):
+    """networks.py:382-439: two reflect-padded 3x3 conv -> BN stages with
+    ReLU (and dropout) between them, added to the input."""
+
+    def __init__(self, dim: int, use_dropout: bool = False):
+        super().__init__()
+        self.use_dropout = use_dropout
+        self.conv0 = nn.Conv2d(dim, dim, 3, bias=False)
+        self.bn0 = BatchNorm2d(dim)
+        self.conv1 = nn.Conv2d(dim, dim, 3, bias=False)
+        self.bn1 = BatchNorm2d(dim)
+
+    def forward(self, x, keep=None, generator=None):
+        """``keep``: a keep-mask that replaces the train-mode dropout
+        draw."""
+        h = F.relu(self.bn0(self.conv0(_reflect(x, 1))))
+        if self.training and self.use_dropout:
+            h = _dropout(h, keep, generator)
+        h = self.bn1(self.conv1(_reflect(h, 1)))
+        return x + h.to(x.dtype)
+
+
+class ResnetGenerator(nn.Module):
+    """networks.py:321-379. ``arch_upconv`` is accepted and ignored (the
+    generators share one signature)."""
+
+    def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
+                 n_blocks: int = 9, use_dropout: bool = False):
+        super().__init__()
+        self.n_blocks = n_blocks
+        self.stem = nn.Conv2d(input_nc, ngf, 7, bias=False)
+        self.stem_bn = BatchNorm2d(ngf)
+        for i in range(2):
+            c = ngf * 2 ** i
+            self.add_module(f"down{i}", nn.Conv2d(c, 2 * c, 3, 2, 1,
+                                                  bias=False))
+            self.add_module(f"down_bn{i}", BatchNorm2d(2 * c))
+        for i in range(n_blocks):
+            self.add_module(f"res{i}", ResnetBlock(ngf * 4, use_dropout))
+        for i in range(2):
+            c = ngf * 2 ** (2 - i)
+            # torch ConvTranspose2d(k3, s2, p1, output_padding=1): 2n out
+            self.add_module(f"up{i}", nn.ConvTranspose2d(
+                c, c // 2, 3, 2, 1, output_padding=1, bias=False))
+            self.add_module(f"up_bn{i}", BatchNorm2d(c // 2))
+        self.head = nn.Conv2d(ngf, output_nc, 7, bias=True)
+
+    def forward(self, x, arch_upconv=None, dropout_masks=None,
+                generator: torch.Generator | None = None):
+        """``dropout_masks``: {block index: keep-mask shaped like that
+        block's first conv output} replaces the draw from ``generator``
+        (train mode only)."""
+        h = F.relu(self.stem_bn(self.stem(_reflect(x, 3))))
+        for i in range(2):
+            h = F.relu(getattr(self, f"down_bn{i}")(
+                getattr(self, f"down{i}")(h)))
+        for i in range(self.n_blocks):
+            keep = None if dropout_masks is None else dropout_masks[i]
+            h = getattr(self, f"res{i}")(h, keep, generator)
+        for i in range(2):
+            h = F.relu(getattr(self, f"up_bn{i}")(getattr(self, f"up{i}")(h)))
+        return torch.tanh(self.head(_reflect(h, 3)).float())
 
 
 class NLayerDiscriminator(nn.Module):
@@ -118,28 +195,55 @@ class NLayerDiscriminator(nn.Module):
         return self.head(h).float()
 
 
+class PixelDiscriminator(nn.Module):
+    """1x1 PatchGAN (networks.py:668-697): a per-pixel NCHW logit map."""
+
+    def __init__(self, input_nc: int = 2, ndf: int = 64):
+        super().__init__()
+        self.conv0 = nn.Conv2d(input_nc, ndf, 1, bias=True)
+        self.conv1 = nn.Conv2d(ndf, 2 * ndf, 1, bias=False)
+        self.bn1 = BatchNorm2d(2 * ndf)
+        self.head = nn.Conv2d(2 * ndf, 1, 1, bias=False)
+
+    def forward(self, x):
+        h = F.leaky_relu(self.conv0(x), 0.2)
+        h = F.leaky_relu(self.bn1(self.conv1(h)), 0.2)
+        return self.head(h).float()
+
+
 _NUM_DOWNS = {256: 8, 128: 7, 64: 6, 32: 5}
 
 
 def define_G(input_nc: int = 1, output_nc: int = 1, netG: str = "unet_256",
              ngf: int = 64, use_dropout: bool = True,
              generator: torch.Generator | None = None):
-    """Generator factory (networks.py:125-165), unet_* generators, 'normal'
-    init at gain 0.02."""
-    if not netG.startswith("unet_"):
-        raise NotImplementedError(f"generator {netG!r} is not ported yet")
-    net = UnetGenerator(input_nc, output_nc,
-                        _NUM_DOWNS[int(netG.split("_")[1])], ngf, use_dropout)
+    """Generator factory (networks.py:125-165): unet_{256,128,64,32} and
+    resnet_{9,6}blocks, 'normal' init at gain 0.02."""
+    if netG.startswith("unet_"):
+        net = UnetGenerator(input_nc, output_nc,
+                            _NUM_DOWNS[int(netG.split("_")[1])], ngf,
+                            use_dropout)
+    elif netG in ("resnet_9blocks", "resnet_6blocks"):
+        net = ResnetGenerator(input_nc, output_nc, ngf,
+                              9 if netG == "resnet_9blocks" else 6,
+                              use_dropout)
+    else:
+        raise NotImplementedError(f"generator {netG!r} is not recognized")
     pix2pix_normal_(net, 0.02, generator)
     return net
 
 
 def define_D(input_nc: int = 2, netD: str = "basic", ndf: int = 64,
              n_layers_D: int = 3, generator: torch.Generator | None = None):
-    """Discriminator factory (networks.py:168-209): 'basic' and 'n_layers'."""
-    if netD not in ("basic", "n_layers"):
-        raise NotImplementedError(f"discriminator {netD!r} is not ported yet")
-    net = NLayerDiscriminator(input_nc, ndf,
-                              3 if netD == "basic" else n_layers_D)
+    """Discriminator factory (networks.py:168-209): 'basic' (3 layers),
+    'n_layers' (``n_layers_D``) and 'pixel'."""
+    if netD in ("basic", "n_layers"):
+        net = NLayerDiscriminator(input_nc, ndf,
+                                  3 if netD == "basic" else n_layers_D)
+    elif netD == "pixel":
+        net = PixelDiscriminator(input_nc, ndf)
+    else:
+        raise NotImplementedError(f"discriminator {netD!r} is not "
+                                  "recognized")
     pix2pix_normal_(net, 0.02, generator)
     return net

@@ -3,9 +3,9 @@
 
 Parity targets: Dice ``util/dice_score.py:5-28`` (binary, and the
 multi-class mean the evaluation protocol scores); Jaccard
-``running_files/train_end2end_isic.py:40-53`` (evaluation only: the Jaccard
-and multi-class training losses come with the ISIC slice);
-BCE-with-logits criterion ``running_files/train_end2end_jsrt.py:136``; GAN
+``running_files/train_end2end_isic.py:40-57`` (the ISIC family's metric and
+training loss); BCE-with-logits and cross-entropy criteria
+``running_files/train_end2end_jsrt.py:136``; GAN
 objectives ``models_pix2pix/networks.py:215-318``. Reductions run in
 float32 whatever the autocast dtype.
 """
@@ -54,9 +54,16 @@ def jaccard_index(y_true, y_pred, smooth: float = 1.0):
     return torch.mean((inter + smooth) / (sum_ - inter + smooth))
 
 
-def dice_loss(pred, target):
-    """1 - Dice, with the batch folded first (``util/dice_score.py:26-28``)."""
-    return 1.0 - dice_coeff(pred, target, reduce_batch_first=True)
+def jaccard_index_loss(y_true, y_pred, smooth: float = 1.0):
+    """(1 - smoothed IoU) * smooth (``train_end2end_isic.py:55-57``)."""
+    return (1.0 - jaccard_index(y_true, y_pred, smooth)) * smooth
+
+
+def dice_loss(pred, target, multiclass: bool = False):
+    """1 - Dice, with the batch folded first (``util/dice_score.py:26-28``);
+    ``multiclass`` averages over (batch, class) planes."""
+    fn = multiclass_dice_coeff if multiclass else dice_coeff
+    return 1.0 - fn(pred, target, reduce_batch_first=True)
 
 
 def bce_with_logits(logits, targets):
@@ -65,6 +72,13 @@ def bce_with_logits(logits, targets):
     loss = (torch.clamp(logits, min=0.0) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
     return torch.mean(loss)
+
+
+def softmax_cross_entropy(logits, labels, dim: int = 1):
+    """Mean cross entropy with integer class labels, the classes along
+    ``dim`` (torch ``CrossEntropyLoss``, the multi-class criterion)."""
+    logp = torch.log_softmax(logits.float(), dim=dim)
+    return -torch.mean(logp.gather(dim, labels.long().unsqueeze(dim)))
 
 
 def gan_loss(pred, target_is_real: bool, gan_mode: str = "vanilla"):

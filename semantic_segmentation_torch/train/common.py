@@ -19,7 +19,7 @@ from semantic_segmentation_torch.data.folder import make_dataset
 from semantic_segmentation_torch.data.pipeline import (stack_dataset,
                                                        subset_split)
 from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
-from semantic_segmentation_torch.models.seg import SegProblem
+from semantic_segmentation_torch.models.seg import SWIN_NAMES, SegProblem
 from semantic_segmentation_torch.utils.milesial import (is_milesial,
                                                         port_unet_milesial)
 
@@ -66,13 +66,20 @@ def as_float_images(batch: dict) -> dict:
 
 def seg_model_kwargs(cfg: Config) -> dict:
     """Per-backbone construction kwargs from the config: the U-Net's width
-    and ups. The other backbones come with ROADMAP.md section 1 item 7."""
-    if cfg.model.seg_model != "unet":
-        raise NotImplementedError(
-            f"seg model {cfg.model.seg_model!r} is not ported yet (ROADMAP.md "
-            "section 1 item 7)")
-    return {"bilinear": cfg.model.bilinear,
-            "base_features": cfg.model.base_features}
+    and ups (--bilinear, base_features), the Swin-UNet's stochastic depth,
+    recompute and input size (DROP_PATH_RATE yaml:4, --use-checkpoint
+    train_options.py:87). The other backbones come with ROADMAP.md section
+    1 item 7."""
+    m = cfg.model
+    if m.seg_model == "unet":
+        return {"bilinear": m.bilinear, "base_features": m.base_features}
+    if m.seg_model in SWIN_NAMES:
+        return {"drop_path_rate": m.drop_path_rate,
+                "use_checkpoint": m.use_checkpoint,
+                "img_size": cfg.data.image_size}
+    raise NotImplementedError(
+        f"seg model {m.seg_model!r} is not ported yet (ROADMAP.md section 1 "
+        "item 7)")
 
 
 def seg_metric(cfg: Config) -> str:
@@ -134,7 +141,7 @@ def load_seg_state(cfg: Config, net: torch.nn.Module, model_file: str = ""):
     if state is None:
         return net, False
     net.load_state_dict(_unet_state_from_checkpoint(state))
-    log.info("loaded the U-Net of %s step %d", ckpt_dir, step)
+    log.info("loaded the segmenter of %s step %d", ckpt_dir, step)
     return net, True
 
 

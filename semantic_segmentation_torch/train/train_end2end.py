@@ -7,19 +7,25 @@ The four Betty problems become closures over the shared nets:
 - netD (:158-172): 0.5 * (fake + real) GAN loss; G runs in train mode under
   ``no_grad`` (its BN stats still update, as the reference's forward does),
   D twice with its stats threaded between the calls.
-- unet (:177-226), the hot loop: real loss (BCE + Dice) + loss_lambda * fake
-  loss, the fake branch being augment(mask) [warp kernel] -> threshold 0.1
-  -> G -> post-process -> U-Net. The post-process is ``uint8_chain``
-  (min-max -> uint8 -> equalize [equalize kernel] -> gamma(0.5) -> /255,
-  the reference's) or ``minmax`` (differentiable, with ``detach_fakes``
-  False the live search's). The U-Net runs twice, real branch then fake.
-- arch (outer, :229-236): the U-Net's validation loss, read by the darts
-  and unroll hypergradients (not evaluated under ``decay_only``).
+- unet (:177-226), the hot loop: real loss (BCE + Dice, or + Jaccard for
+  the ISIC family) + loss_lambda * fake loss, the fake branch being
+  augment(mask) [warp kernel] -> threshold 0.1 -> G -> post-process ->
+  segmenter. The post-process is ``uint8_chain`` (min-max -> uint8 ->
+  equalize [equalize kernel] -> gamma(0.5) -> /255, the JSRT script's),
+  ``photometric`` (min-max -> uint8 -> the ISIC script's ``fake_trans``
+  chain, its equalize the same kernel -> /255) or ``minmax``
+  (differentiable, with ``detach_fakes`` False the live search's). The
+  segmenter runs twice, real branch then fake.
+- arch (outer, :229-236): the segmenter's validation loss, read by the
+  darts and unroll hypergradients (not evaluated under ``decay_only``).
 
-Validation Dice every ``valid_step``; best-val snapshot; ReduceLROnPlateau
-on the unet lr every len(train) steps; the metric stream, periodic and final
-checkpoints and resume; final test and OOD Dice of the best U-Net;
-``torch.save`` of the best U-Net.
+The segmenter is the U-Net or the Swin-UNet (``--model.seg_model=vit``),
+whose train-mode forwards draw stochastic-depth masks.
+
+Validation Dice (Jaccard for ISIC) every ``valid_step``; best-val
+snapshot; ReduceLROnPlateau on the unet lr every len(train) steps; the
+metric stream, periodic and final checkpoints and resume; final test and
+OOD scores of the best segmenter; ``torch.save`` of it.
 
 The public ops keep the JAX package's NHWC layout; the nets are NCHW. The
 closures permute at the boundary, a view at C = 1.
@@ -29,7 +35,9 @@ Usage: ``python -m semantic_segmentation_torch.train.train_end2end
 [--data.ood_roots=nlm:<dir>,sz:<dir>:_mask] [--engine.hypergrad=darts]
 [--run.device=cpu]`` (``--data.synthetic=true`` for generated data,
 ``--run.resume=true`` to continue a run); the live search:
-``--preset=end2end_nas``.
+``--preset=end2end_nas``; the ISIC family: ``--preset=end2end_isic
+--data.dataroot=<ISIC dir> --model.output_nc=3`` and
+``--preset=end2end_isic224``.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from semantic_segmentation_torch.ops import image as iops
 from semantic_segmentation_torch.ops.augment import random_augment_batch
 from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 from semantic_segmentation_torch.ops.metrics import eval_batch_score
+from semantic_segmentation_torch.ops.photometric import random_photometric
 from semantic_segmentation_torch.train.common import (autocast_for,
                                                       load_splits, seg_metric,
                                                       seg_model_kwargs)
@@ -77,23 +86,27 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp):
+def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
+                   outer_generator: torch.Generator | None = None):
     """The three inner GenSeg problems and the arch problem's outer loss as
-    engine closures. Returns (problems, outer_loss).
+    engine closures. Returns (problems, outer_loss). The outer loss draws
+    from ``outer_generator`` (the engine's ``hyper_generator``).
 
     Each loss takes ``(batch, draws, params=None, generator=None)``
-    (``InnerProblem``): ``generator`` draws the augment affines and dropout
-    masks not injected via ``draws`` ({'affine': (B, 3, 3)}, {'dropout':
-    {depth: keep-mask}}); ``params`` ({problem name or 'arch': tensors})
-    runs each net it names on those weights instead of its module's, every
-    net then on scratch BN buffers (train_end2end.py:75-144 of the JAX
-    package reads ``state.params`` the same way)."""
+    (``InnerProblem``): ``generator`` draws what ``draws`` does not inject:
+    'affine' (B, 3, 3), the augment matrices; 'dropout' ({depth or block:
+    keep-mask}), G's dropout; 'photometric' (``draw_photometric``'s dict);
+    'seg_real', 'seg_fake' ({block: (2, B) keep-masks}), the Swin's drop
+    paths in the two segmenter forwards. ``params`` ({problem name or
+    'arch': tensors}) runs each net it names on those weights instead of
+    its module's, every net then on scratch BN buffers
+    (train_end2end.py:75-144 of the JAX package reads ``state.params`` the
+    same way)."""
     loss_lambda = cfg.optim.loss_lambda
     detach = cfg.engine.detach_fakes
     postprocess = cfg.engine.fake_postprocess
-    if postprocess not in ("uint8_chain", "minmax"):
-        raise NotImplementedError(f"fake_postprocess={postprocess!r} is not "
-                                  "ported yet")
+    if postprocess not in ("uint8_chain", "photometric", "minmax"):
+        raise ValueError(f"unknown fake_postprocess {postprocess!r}")
 
     def nets(params):
         """(G, D, U-Net weights, arch tables, keep_stats) of one call: the
@@ -134,7 +147,8 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp):
         masks = batch["mask"].float()                       # NHWC
         with amp():
             # real branch (train_end2end_jsrt.py:181-183)
-            logits = seg.apply(images, True, u, keep)
+            logits = seg.apply(images, True, u, keep, draws.get("seg_real"),
+                               generator)
             loss = seg_loss_fn(logits, _nchw(masks), seg.n_classes,
                                seg.loss_type)
             # fake branch (:186-204)
@@ -149,21 +163,33 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp):
                 # package's integer cast gives zero), so say so
                 fake_image = _nchw(iops.equalize_gamma_chain(
                     _nhwc(fake_image.detach()), 0.5))
+            elif postprocess == "photometric":
+                # the ISIC fake_trans (train_end2end_isic.py:178-183,
+                # applied :264): global min-max -> uint8 -> photometric
+                # chain -> /255; integer ops, so no gradient
+                u8 = iops.to_uint8(iops.minmax_normalize(
+                    _nhwc(fake_image.detach())))
+                u8 = random_photometric(u8, generator,
+                                        draws=draws.get("photometric"))
+                fake_image = _nchw(u8.float() / 255.0)
             else:
                 fake_image = iops.minmax_normalize(fake_image)
-            fake_logits = seg.apply(fake_image, True, u, keep)
+            fake_logits = seg.apply(fake_image, True, u, keep,
+                                    draws.get("seg_fake"), generator)
             fake_loss = seg_loss_fn(fake_logits, _nchw(fake_mask),
                                     seg.n_classes, seg.loss_type)
         return loss + loss_lambda * fake_loss
 
     def outer_loss(params, val_batch):
-        """The arch problem (:229-236): the U-Net's validation loss, a
-        train-mode forward (batch statistics) on scratch BN buffers."""
+        """The arch problem (:229-236): the segmenter's validation loss, a
+        train-mode forward (batch statistics) on scratch BN buffers, its
+        drop paths drawn from ``outer_generator``."""
         u = params.get("unet") if params is not None else None
         images = _nchw(val_batch["image"].float())
         masks = _nchw(val_batch["mask"].float())
         with amp():
-            logits = seg.apply(images, True, u, keep_stats=False)
+            logits = seg.apply(images, True, u, keep_stats=False,
+                               generator=outer_generator)
             return seg_loss_fn(logits, masks, seg.n_classes, seg.loss_type)
 
     problems = [
@@ -192,8 +218,10 @@ def build_engine(cfg: Config, device, seed: int | None = None):
                      lr=cfg.optim.unet_lr, loss_type=seg_metric(cfg),
                      device=device, generator=init_gen,
                      **seg_model_kwargs(cfg))
+    hyper_gen = torch.Generator(device=device).manual_seed(seed + 6)
     problems, outer_loss = build_problems(cfg, p2p, seg,
-                                          autocast_for(cfg, device))
+                                          autocast_for(cfg, device),
+                                          hyper_gen)
     # end2end arch optimizer: Adam(arch_lr, (0.5, 0.999), wd=1e-5)
     # (train_end2end_jsrt.py:324)
     arch_opt = adam_torch(list(p2p.arch.values()), cfg.optim.arch_lr, 0.5,
@@ -205,7 +233,7 @@ def build_engine(cfg: Config, device, seed: int | None = None):
         hypergrad=e.hypergrad, darts_epsilon=e.darts_epsilon,
         arch_children=e.arch_children,
         generator=torch.Generator(device=device).manual_seed(seed + 5),
-        hyper_generator=torch.Generator(device=device).manual_seed(seed + 6))
+        hyper_generator=hyper_gen)
     return engine, p2p, seg
 
 

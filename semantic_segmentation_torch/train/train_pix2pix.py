@@ -45,7 +45,7 @@ def build_pix2pix(cfg: Config, device, generator: torch.Generator | None =
         raise NotImplementedError(f"norm={m.norm!r} is not ported yet")
     device = torch.device(device)
     return Pix2Pix(m.input_nc, m.output_nc, m.ngf, m.ndf, m.netG, m.netD,
-                   use_dropout=not m.no_dropout, gan_mode=cfg.optim.gan_mode,
+                   m.n_layers_D, use_dropout=not m.no_dropout, gan_mode=cfg.optim.gan_mode,
                    lambda_L1=cfg.optim.lambda_L1, lr=cfg.optim.lr,
                    beta1=cfg.optim.beta1, arch_lr=cfg.optim.arch_lr,
                    amp=autocast_for(cfg, device), device=device,

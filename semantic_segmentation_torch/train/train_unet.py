@@ -55,14 +55,15 @@ def evaluate_split(net, data, batch_size: int, n_classes: int = 1,
     return total / max(count, 1)
 
 
-def train_step(seg: SegProblem, optimizer, batch, amp, device):
-    """One RMSprop step of the seg net on a numpy NHWC batch; returns the
-    loss."""
+def train_step(seg: SegProblem, optimizer, batch, amp, device,
+               generator: torch.Generator | None = None):
+    """One RMSprop step of the seg net on a numpy NHWC batch (the Swin's
+    drop paths drawn from ``generator``); returns the loss."""
     images = _nchw(torch.from_numpy(batch["image"]).float().to(device))
     masks = _nchw(torch.from_numpy(batch["mask"]).to(device))
     with amp():
-        loss = seg_loss_fn(seg.apply(images, train=True), masks,
-                           seg.n_classes, seg.loss_type)
+        logits = seg.apply(images, train=True, generator=generator)
+        loss = seg_loss_fn(logits, masks, seg.n_classes, seg.loss_type)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
@@ -80,6 +81,7 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
     seg = build_seg_problem(cfg, dev)
     amp = autocast_for(cfg, dev)
     optimizer = seg.make_opt()
+    draw_gen = torch.Generator(device=dev).manual_seed(cfg.run.seed + 1)
     splits = load_splits(cfg)
     save_dir = os.path.join(cfg.run.save_dir, cfg.run.name)
     bs, classes = cfg.data.batch_size, cfg.model.classes
@@ -95,7 +97,7 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
         while step < iters:
             rng = np.random.default_rng((cfg.run.seed, epoch))
             for batch in batch_iterator(splits["train"], bs, rng):
-                loss = train_step(seg, optimizer, batch, amp, dev)
+                loss = train_step(seg, optimizer, batch, amp, dev, draw_gen)
                 step += 1
                 if step % cfg.engine.valid_step == 0:
                     val = evaluate_split(seg.net, splits["val"], bs, classes,

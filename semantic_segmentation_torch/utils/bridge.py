@@ -10,7 +10,10 @@ the kind of port module that owns them:
   package stores the forward-equivalent kernel, spatially flipped, in HWIO
   (``ops/conv.py:5-10``); torch stores (C_in, C_out, k, k) unflipped;
 - ``BatchNorm2d``: scale/bias <-> weight/bias, stats mean/var <->
-  running_mean/running_var.
+  running_mean/running_var;
+- ``nn.Linear`` (flax ``Dense``) kernel: (in, out) <-> (out, in);
+- ``nn.LayerNorm``: scale/bias <-> weight/bias;
+- any other leaf (the Swin's ``rel_pos_bias`` table) as it is.
 
 The arch dict ({'conv', 'upconv'} tables) converts as it is.
 """
@@ -69,6 +72,8 @@ def flax_to_state_dict(module: nn.Module, params: dict,
             if arr.ndim == 4:
                 arr = _kernel_to_torch(
                     arr, isinstance(_owner(module, key), _TRANSPOSED))
+            elif arr.ndim == 2 and path[-1] == "kernel":
+                arr = np.ascontiguousarray(arr.T)
             sd[key] = torch.from_numpy(arr.copy())
     return sd
 
@@ -85,8 +90,12 @@ def state_dict_to_flax(module: nn.Module, state_dict: dict):
             leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
                     "running_var": "var"}[leaf]
             tree = stats if leaf in ("mean", "var") else params
+        elif isinstance(owner, nn.LayerNorm):
+            leaf = {"weight": "scale", "bias": "bias"}[leaf]
         elif leaf == "weight":
             leaf = "kernel"
+            if isinstance(owner, nn.Linear):
+                arr = np.ascontiguousarray(arr.T)
         if arr.ndim == 4:
             arr = _kernel_to_flax(arr, isinstance(owner, _TRANSPOSED))
         node = tree

@@ -66,10 +66,11 @@ def test_warp_kernel_matches_plain(dev, kind):
 
 
 # (n, h, w, c): each channel count and batch size, a width off multiples of
-# 4 (the masked scalar stores) and one that is a multiple (float4 stores)
+# 4 (the masked scalar stores) and one that is a multiple (float4 stores);
+# the ISIC224 trainer's masks
 @pytest.mark.parametrize("shape", [(1, 64, 64, 1), (3, 64, 64, 1),
                                    (1, 40, 37, 3), (3, 33, 50, 3),
-                                   (2, 31, 45, 1)],
+                                   (2, 31, 45, 1), (2, 224, 224, 1)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_warp_kernel_exact_across_shapes(dev, shape):
     n, h, w, _ = shape
@@ -177,10 +178,11 @@ def _both_exact(x):
 
 # the benchmark's cold shape; N = 1; hw off multiples of 16 (250^2 = 62,500
 # and 7 x 9); an image too large to keep its slices in shared memory; c = 3
-# at 256^2; 70,000 tiny images (past the old 65,535-image grid limit)
+# at 256^2 and 224^2 (the ISIC trainers' RGB fakes); 70,000 tiny images
+# (past the old 65,535-image grid limit)
 CLUSTER_SHAPES = [(64, 512, 512, 1), (1, 256, 256, 1), (2, 250, 250, 1),
                   (3, 7, 9, 1), (1, 2048, 2048, 1), (2, 256, 256, 3),
-                  (70000, 8, 8, 1)]
+                  (2, 224, 224, 3), (70000, 8, 8, 1)]
 
 
 @pytest.mark.parametrize("shape", CLUSTER_SHAPES,

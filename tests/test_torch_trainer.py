@@ -93,9 +93,15 @@ def test_hypergrad_modes_train_on_cpu(mode, tmp_path):
 
 
 def test_photometric_postprocess_is_refused(tmp_path):
+    # the photometric post-process was refused until the ISIC slice ported
+    # it: now it trains, and a post-process of another name is refused
     cfg = parse_config(ARGV + [f"--run.save_dir={tmp_path}",
                                "--engine.fake_postprocess=photometric"])
-    with pytest.raises(NotImplementedError, match="photometric"):
+    engine, results = train_end2end.train(cfg, train_iters=2, device="cpu")
+    assert np.isfinite(results["chunks"][-1]["loss_unet"])
+    cfg = parse_config(ARGV + [f"--run.save_dir={tmp_path}",
+                               "--engine.fake_postprocess=sepia"])
+    with pytest.raises(ValueError, match="sepia"):
         train_end2end.build_engine(cfg, "cpu")
 
 
@@ -111,7 +117,7 @@ def test_hypergrad_none_leaves_arch(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--run.data_axis=data"],
                                   ["--optim.accumulate=2"],
-                                  ["--preset=end2end_isic"]])
+                                  ["--preset=end2end_3d"]])
 def test_unported_options_are_refused(argv):
     # an option the port does not implement yet fails loudly instead of
     # being ignored
