@@ -34,10 +34,11 @@ Phases, each of which stops the script with a nonzero exit on failure:
 5. the engine on the card against the engine on the CPU: three iterations
    at 32^2 in float32 from the same seed, batches and augment matrices, in
    each of ``decay_only``, ``darts`` (the reference wiring) and ``unroll``
-   (``end2end_nas``); losses within rtol 1e-3, arch tables within 1e-6
-   (1e-5 for ``unroll``); the darts hypergradient exactly 0 on both
-   devices and its arch tables equal to ``decay_only``'s, the unroll one
-   finite and > 0;
+   (``end2end_nas``), and ``decay_only`` with DeepLabV3 at layers 1-1-1-1
+   (its ASPP dropout masks drawn on the CPU and injected); losses within
+   rtol 1e-3, arch tables within 1e-6 (1e-5 for ``unroll``); the darts
+   hypergradient exactly 0 on both devices and its arch tables equal to
+   ``decay_only``'s, the unroll one finite and > 0;
 6. the stage-1 trainer: ``train_pix2pix.train()`` of the pix2pix_jsrt
    preset at full width (256^2, batch 2, unet_256, ngf = ndf = 64, bf16
    autocast, synthetic data) for 20 steps; finite losses, the two
@@ -97,6 +98,31 @@ Phases, each of which stops the script with a nonzero exit on failure:
    For (b) and (c): finite losses, steady it/s, peak bytes, and the warp
    and equalize launches (one each per unet inner step: 20 and 20 in 20
    iterations, 40 and 40 under ``darts``; histogram and down-conv 0);
+7d. the segmenter zoo, at the same full width from phase 6's checkpoint:
+   (a) the flagship (``end2end_jsrt``, ``decay_only``) with
+   ``--model.seg_model=deeplab`` (DeepLabV3, ResNet-50 at 3-4-6-3) for 20
+   iterations, twice for the run-to-run spread, and for 10 iterations
+   from a net one ulp away (one scale of the head's BN) for how far such a
+   difference grows (finite losses, best_val and test Dice, warp and
+   equalize one launch an iteration, histogram and down-conv 0; steady
+   it/s and peak beside phase 7's); (b) remat: one iteration of the
+   engine ``train()`` builds, from the same state with and without
+   ``--model.remat=true``, gives the same losses and BN statistics bit for
+   bit and parameters within 20 lr; the same run as (a) with remat for 20
+   iterations has a lower peak (its losses after 10 are printed beside
+   (a)'s spread and one-ulp gap, not held: the run is chaotic); and the
+   U-Net flagship with remat gives phase 7's losses after 20 iterations
+   bit for bit; (c) the engine ``train()``
+   builds with
+   ``--optim.accumulate=2``, stepped 10 iterations as ``train()`` steps
+   it: the segmenter's parameters move on every second inner step only;
+   (d) ``test_seg`` on (a)'s ``unet_best.pt`` gives (a)'s test Dice within
+   1e-6, and ``export_seg`` writes it as a ``torch.export`` artifact (bf16,
+   symbolic batch) whose loaded program agrees with the eager predict head
+   within 1e-5 at batches 1 and 3 on the card; (e) ``train_unet`` for 20
+   steps with ``--model.seg_model=deeplabv2`` (ResNet-101, multi-grid,
+   output stride 16) and with ``--model.bilinear=true`` (finite losses, a
+   best_val, no kernel launched; steps/s and peak);
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -445,18 +471,28 @@ SMALL_ARGV = ["--data.synthetic=true", "--data.image_size=32",
               "--model.ngf=8", "--model.ndf=8", "--model.base_features=8"]
 
 
-SMALL_MODES = {   # label: (extra argv, preset, arch tolerance card vs CPU)
-    "decay_only": ([], "end2end_jsrt", 1e-6),
-    "darts": (["--engine.hypergrad=darts"], "end2end_jsrt", 1e-6),
-    "unroll": ([], "end2end_nas", 1e-5),
+SMALL_MODES = {   # label: (extra argv, preset, arch tolerance card vs CPU,
+                  # iterations)
+    "decay_only": ([], "end2end_jsrt", 1e-6, 3),
+    "darts": (["--engine.hypergrad=darts"], "end2end_jsrt", 1e-6, 3),
+    "unroll": ([], "end2end_nas", 1e-5, 3),
+    # DeepLabV3 at layers 1-1-1-1 (phase 7d's segmenter, cut in depth):
+    # one iteration, since its BN over the pooled ASPP branch's two values
+    # a channel lets RMSprop's first steps part the devices' trajectories
+    # (8e-4 and 2.2e-3 apart after the second and third on an H100)
+    "decay_only_deeplab": (["--model.seg_model=deeplab"], "end2end_jsrt",
+                           1e-6, 1),
 }
+SMALL_DEEPLAB_LAYERS = (1, 1, 1, 1)
 
 
 def _small_engine_run(torch, dev, argv, preset, iters):
     """``iters`` engine iterations at 32^2 on ``dev``: the index streams of
-    the trainer, and augment matrices drawn on the CPU from one seed for
-    every phase (unroll, hypergradient, replay), the same for every mode.
-    Returns (metrics per iteration, arch tables on the CPU)."""
+    the trainer, and augment matrices (and DeepLabV3's ASPP dropout masks)
+    drawn on the CPU from one seed for every phase (unroll, hypergradient,
+    replay), the same for every mode. Returns (metrics per iteration, arch
+    tables on the CPU)."""
+    import semantic_segmentation_torch.train.train_end2end as e2e
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.data.pipeline import (
         epoch_index_batches, take_batch, to_device_split)
@@ -467,7 +503,14 @@ def _small_engine_run(torch, dev, argv, preset, iters):
     cfg = parse_config(SMALL_ARGV + argv, preset=preset)
     splits = load_splits(cfg)
     bs, size = cfg.data.batch_size, cfg.data.image_size
-    engine, p2p, _ = build_engine(cfg, dev)
+    deeplab = cfg.model.seg_model == "deeplab"
+    plain_kwargs = e2e.seg_model_kwargs
+    if deeplab:       # the config has no depth option: cut it here
+        e2e.seg_model_kwargs = lambda c: {"layers": SMALL_DEEPLAB_LAYERS}
+    try:
+        engine, p2p, seg = build_engine(cfg, dev)
+    finally:
+        e2e.seg_model_kwargs = plain_kwargs
     data = to_device_split(splits["train"], dev)
     val = to_device_split(splits["val"], dev)
     streams = {n: epoch_index_batches(cfg.data.n_train, bs,
@@ -478,9 +521,14 @@ def _small_engine_run(torch, dev, argv, preset, iters):
     gen = torch.Generator().manual_seed(11)
     out = []
     for _ in range(iters):
-        draws = {ph: [{"unet": {"affine": sample_affine_batch(
-            bs, size, size, gen).to(dev)}}]
-            for ph in ("unroll", "hyper", "replay")}
+        draws = {}
+        for ph in ("unroll", "hyper", "replay"):
+            d = {"affine": sample_affine_batch(bs, size, size, gen).to(dev)}
+            if deeplab:
+                for k in ("seg_real", "seg_fake"):
+                    d[k] = {n: m.to(dev) for n, m in seg.net.draw_dropout(
+                        (bs, 1, size, size), gen, "cpu").items()}
+            draws[ph] = [{"unet": d}]
         m = engine.engine_step(
             [{n: take_batch(data, next(s)) for n, s in streams.items()}],
             take_batch(val, next(val_stream)), draws)
@@ -488,10 +536,10 @@ def _small_engine_run(torch, dev, argv, preset, iters):
     return out, {k: v.cpu() for k, v in p2p.arch.items()}
 
 
-def phase_small_engine(torch, devices=("cpu", "cuda"), iters: int = 3):
+def phase_small_engine(torch, devices=("cpu", "cuda")):
     """Three engine iterations at 32^2 in float32 in each of ``decay_only``,
-    ``darts`` (the reference wiring) and ``unroll`` (``end2end_nas``), on the
-    card and on the CPU (where every op takes its plain path, the path the
+    ``darts`` (the reference wiring) and ``unroll`` (``end2end_nas``), and
+    one of ``decay_only`` with DeepLabV3, on the card and on the CPU (where every op takes its plain path, the path the
     CPU tests hold against the JAX package), from the same seed, batches and
     augment matrices. Losses agree within rtol 1e-3 (the uint8 chain may
     move a quantisation level), the arch tables within 1e-6 (1e-5 for
@@ -500,7 +548,7 @@ def phase_small_engine(torch, devices=("cpu", "cuda"), iters: int = 3):
     arch tables equal ``decay_only``'s; ``unroll``'s norm is finite and
     > 0."""
     arch_by_mode = {}
-    for label, (argv, preset, tol) in SMALL_MODES.items():
+    for label, (argv, preset, tol, iters) in SMALL_MODES.items():
         (ref, arch_ref), (got, arch_got) = [
             _small_engine_run(torch, dev, argv, preset, iters)
             for dev in devices]
@@ -1154,6 +1202,341 @@ def phase_isic(torch):
     return out
 
 
+ZOO_LOSSES = ("loss_netG", "loss_netD", "loss_unet", "replay_loss_netG",
+              "replay_loss_netD", "replay_loss_unet")
+ZOO_ACCUMULATE_ITERS, ZOO_UNET_STEPS = 10, 20
+
+
+def _zoo_cfg(ckpt, name: str, *extra, seg_model: str = "deeplab"):
+    """The flagship (``end2end_jsrt``) at full width with ``seg_model``."""
+    from semantic_segmentation_torch.core.config import parse_config
+    cfg = parse_config(["--data.synthetic=true",
+                        f"--model.seg_model={seg_model}",
+                        f"--engine.valid_step={VALID_STEP}",
+                        f"--run.pretrained_pix2pix={ckpt}",
+                        f"--run.save_dir={SAVE_DIR}", f"--run.name={name}",
+                        *extra], preset="end2end_jsrt")
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.compute_dtype, cfg.engine.hypergrad) ==
+          (256, 2, "unet_256", 64, 64, "bfloat16", "decay_only"),
+          f"zoo {name}: not the full-width end2end_jsrt configuration")
+    return cfg
+
+
+def _zoo_train(torch, cfg, iters: int, label: str, dev="cuda",
+               perturb: bool = False):
+    """train() of ``cfg`` on the card with its launch, loss and score
+    checks; returns (results, stats). ``perturb`` moves one scale of
+    DeepLabV3's head BN by one ulp after the net is built."""
+    import semantic_segmentation_torch.train.train_end2end as e2e
+    from semantic_segmentation_torch import kernels
+    plain_build = e2e.build_engine
+
+    def build_engine(*args, **kwargs):
+        engine, p2p, seg = plain_build(*args, **kwargs)
+        with torch.no_grad():
+            w = seg.net.head_bn.weight
+            w[0] = torch.nextafter(w[0], w[0] + 1)
+        return engine, p2p, seg
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    if perturb:
+        e2e.build_engine = build_engine
+    try:
+        engine, results = e2e.train(cfg, train_iters=iters, device=dev)
+    finally:
+        e2e.build_engine = plain_build
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {"warp_affine": iters, "equalize_uint8": iters,
+            "histogram256": 0, "conv_down4": 0}
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+    for c in results["chunks"]:
+        check(all(math.isfinite(c[k]) for k in ZOO_LOSSES + ("val_score",)),
+              f"{label}: not finite: {c}")
+    check(math.isfinite(results["best_val"])
+          and math.isfinite(results.get("test_dice", math.nan)),
+          f"{label}: no best_val/test_dice: {results}")
+    chunks = results["chunks"][1:] or results["chunks"]
+    its = sum(c["iters"] for c in chunks) / sum(c["seconds"] for c in chunks)
+    stats = {"seg_model": cfg.model.seg_model, "remat": cfg.model.remat,
+             "iters": iters, "steady_it_per_s": its,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "best_val": results["best_val"],
+             "test_dice": results["test_dice"],
+             "last_losses": {k: results["chunks"][-1][k] for k in ZOO_LOSSES},
+             "launches": launches}
+    del engine
+    torch.cuda.empty_cache()
+    return results, stats
+
+
+def _zoo_accumulate(torch, ckpt, dev="cuda"):
+    """(c): the engine ``train()`` builds, at ``optim.accumulate=2``, stepped
+    as ``train()`` steps it; the segmenter's parameters move on every
+    second inner step only."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.optim import Accumulate
+    from semantic_segmentation_torch.data.pipeline import (take_batch,
+                                                           to_device_split)
+    from semantic_segmentation_torch.train.common import load_splits
+    from semantic_segmentation_torch.train.train_end2end import (
+        build_engine, index_streams)
+    cfg = _zoo_cfg(ckpt, "zoo-accumulate", "--optim.accumulate=2")
+    engine, _, seg = build_engine(cfg, dev)
+    opt = engine.problems[-1].optimizer
+    check(isinstance(opt, Accumulate) and opt.every_k == 2,
+          f"accumulate: the unet problem's optimizer is {type(opt)}")
+    splits = load_splits(cfg)
+    train = to_device_split(splits["train"], dev)
+    val = to_device_split(splits["val"], dev)
+    streams, val_stream = index_streams(cfg, len(splits["train"]["image"]),
+                                        len(splits["val"]["image"]))
+    kernels.reset_launches()
+    moved, losses = [], []
+    for _ in range(ZOO_ACCUMULATE_ITERS):
+        before = [p.detach().clone() for p in seg.net.parameters()]
+        m = engine.engine_step(
+            [{n: take_batch(train, next(s)) for n, s in streams.items()}],
+            take_batch(val, next(val_stream)))
+        losses.append({k: float(v) for k, v in m.items()
+                       if k in ZOO_LOSSES})
+        moved.append(any(not torch.equal(a, p)
+                         for a, p in zip(before, seg.net.parameters())))
+        del before
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(all(math.isfinite(v) for d in losses for v in d.values()),
+          f"accumulate: losses {losses}")
+    want = [i % 2 == 1 for i in range(ZOO_ACCUMULATE_ITERS)]
+    check(moved == want, f"accumulate: the segmenter moved at inner steps "
+          f"{moved}, not {want}")
+    del engine, seg
+    torch.cuda.empty_cache()
+    return {"iters": ZOO_ACCUMULATE_ITERS, "moved": moved,
+            "last_losses": losses[-1], "launches": launches}
+
+
+def _zoo_remat_step(torch, ckpt, dev="cuda"):
+    """One iteration of the engine ``train()`` builds, from the same state
+    and batches with and without ``model.remat``: the losses and every BN
+    statistic of G, D and DeepLabV3 bit for bit (the statistics fold once,
+    not again in the recompute), every parameter within 20 lr (one RMSprop
+    step whose sign a rounding flips)."""
+    from semantic_segmentation_torch.data.pipeline import (take_batch,
+                                                           to_device_split)
+    from semantic_segmentation_torch.train.common import load_splits
+    from semantic_segmentation_torch.train.train_end2end import (
+        build_engine, index_streams)
+    out = []
+    for remat in ("false", "true"):
+        cfg = _zoo_cfg(ckpt, "zoo-remat-step", f"--model.remat={remat}")
+        engine, _, _ = build_engine(cfg, dev)
+        splits = load_splits(cfg)
+        train = to_device_split(splits["train"], dev)
+        val = to_device_split(splits["val"], dev)
+        streams, val_stream = index_streams(
+            cfg, len(splits["train"]["image"]), len(splits["val"]["image"]))
+        m = engine.engine_step(
+            [{n: take_batch(train, next(s)) for n, s in streams.items()}],
+            take_batch(val, next(val_stream)))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {p.name: {k: v.detach().clone() for k, v in
+                              p.module.state_dict().items()}
+                     for p in engine.problems}))
+        del engine
+        torch.cuda.empty_cache()
+    (m0, s0), (m1, s1) = out
+    check(m0 == m1, f"remat step: losses {m1} against {m0}")
+    worst, stats_differ = {}, []
+    for name in s0:
+        for k, v in s0[name].items():
+            d = (v.float() - s1[name][k].float()).abs().max().item()
+            if "running" in k:
+                if d != 0.0:
+                    stats_differ.append(f"{name}.{k}")
+            else:
+                worst[name] = max(worst.get(name, 0.0), d)
+    check(not stats_differ, f"remat step: BN statistics differ: "
+          f"{stats_differ[:5]}")
+    steps = {"netG": cfg.optim.lr, "netD": cfg.optim.lr,
+             "unet": cfg.optim.unet_lr}
+    check(all(worst[n] <= 20 * steps[n] for n in worst),
+          f"remat step: parameters apart by {worst}")
+    return {"losses_equal": True, "bn_statistics_equal": True,
+            "max_param_diff": worst}
+
+
+def _zoo_export(torch, cfg, best: Path, dev="cuda"):
+    """(d): ``export_seg`` of (a)'s best net on the card, symbolic batch;
+    the loaded artifact against the eager predict head at batches 1 and
+    3 within 1e-5."""
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.core.export import (load_exported,
+                                                         make_predict_fn)
+    from semantic_segmentation_torch.train import export_seg
+    from semantic_segmentation_torch.train.common import (build_seg_problem,
+                                                          load_seg_state)
+    ecfg = parse_config([f"--model.seg_model={cfg.model.seg_model}",
+                         f"--run.model_file={best}",
+                         f"--run.save_dir={SAVE_DIR}",
+                         f"--run.name={cfg.run.name}",
+                         f"--run.export_platforms={dev}"])
+    t0 = time.perf_counter()
+    path = export_seg.run(ecfg)[dev]
+    export_s = time.perf_counter() - t0
+    call = load_exported(path)
+    seg = build_seg_problem(ecfg, dev)
+    load_seg_state(ecfg, seg.net, str(best))
+    eager = make_predict_fn(seg.net, 1, ecfg.model.compute_dtype)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = {}
+    for b in (1, 3):
+        size = ecfg.data.image_size
+        x = torch.rand(b, size, size, 1, device=dev, generator=gen)
+        with torch.no_grad():
+            got, want = call(x), eager(x)
+        check(got.shape == (b, size, size), f"export: shape {got.shape}")
+        errs[b] = float((got - want).abs().max())
+        check(errs[b] <= 1e-5, f"export: batch {b}: max |err| {errs[b]}")
+    del seg, call
+    torch.cuda.empty_cache()
+    return {"path": path,
+            "bytes": Path(path).stat().st_size, "export_s": export_s,
+            "max_abs_err": errs}
+
+
+def _zoo_train_unet(torch, label: str, extra, dev="cuda"):
+    """(e): ``train_unet`` for 20 steps on synthetic data."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_unet
+    ucfg = parse_config(["--data.synthetic=true",
+                         f"--engine.valid_step={VALID_STEP}",
+                         f"--run.save_dir={SAVE_DIR}", f"--run.name={label}",
+                         *extra])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    seg, run_u = train_unet.train(ucfg, train_iters=ZOO_UNET_STEPS,
+                                  device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(not any(launches.values()),
+          f"{label}: the path runs no kernel, launches {launches}")
+    check(all(math.isfinite(r["loss"]) for r in run_u["log"])
+          and math.isfinite(run_u["best_val"]),
+          f"{label}: losses {run_u['log']}, best_val {run_u['best_val']}")
+    rec = run_u["log"][-1]
+    del seg
+    torch.cuda.empty_cache()
+    return {"steps": ZOO_UNET_STEPS,
+            "steady_steps_per_s": rec["steps"] / rec["seconds"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "best_val": run_u["best_val"],
+            "last_loss": rec["loss"], "launches": launches}
+
+
+def phase_zoo(torch, ckpt, flagship: dict, dev="cuda"):
+    """Phase 7d (module docstring) on ``dev``. Returns {label: stats}."""
+    import shutil
+
+    from semantic_segmentation_torch.train import test_seg
+    out = {}
+
+    def gap(a, b):
+        """The largest relative gap of two runs' losses after VALID_STEP
+        iterations."""
+        return max(abs(a["chunks"][0][k] - b["chunks"][0][k])
+                   / max(abs(b["chunks"][0][k]), 1e-12) for k in ZOO_LOSSES)
+
+    # (a) the flagship with DeepLabV3, twice for the run-to-run spread, and
+    # once from a net one ulp away, for how far such a difference grows
+    cfg = _zoo_cfg(ckpt, "zoo-deeplab")
+    run_a, out["deeplab_trainer"] = _zoo_train(torch, cfg, TRAIN_ITERS,
+                                               "deeplab_trainer", dev)
+    run_b, second = _zoo_train(torch, _zoo_cfg(ckpt, "zoo-deeplab-b"),
+                               TRAIN_ITERS, "deeplab_trainer (b)", dev)
+    run_p, _ = _zoo_train(torch, _zoo_cfg(ckpt, "zoo-deeplab-ulp"),
+                          VALID_STEP, "deeplab_trainer (ulp)", dev,
+                          perturb=True)
+    for name in ("zoo-deeplab-b", "zoo-deeplab-ulp"):
+        shutil.rmtree(SAVE_DIR / name)
+    spread, ulp = gap(run_b, run_a), gap(run_p, run_a)
+    out["deeplab_trainer"].update(
+        second_run_it_per_s=second["steady_it_per_s"], spread=spread,
+        one_ulp_gap=ulp, flagship_it_per_s=flagship["steady_it_per_s"],
+        flagship_peak_mem_bytes=flagship["peak_mem_bytes"])
+    print(f"[zoo] DeepLabV3 flagship {out['deeplab_trainer']['steady_it_per_s']:.2f} "
+          f"and {second['steady_it_per_s']:.2f} it/s, peak "
+          f"{out['deeplab_trainer']['peak_mem_bytes']} bytes; the U-Net "
+          f"flagship (phase 7) {flagship['steady_it_per_s']:.2f} it/s, "
+          f"{flagship['peak_mem_bytes']} bytes; after {VALID_STEP} "
+          f"iterations the two runs {spread:.3e} apart, the run from a net "
+          f"one ulp away {ulp:.3e}")
+
+    # (b) remat. One iteration from the same state, recomputed and not:
+    # the same losses and BN statistics bit for bit, the parameters within
+    # one RMSprop step's sign flip. Then 20 iterations recomputed: a lower
+    # peak; their losses after 10 are printed beside (a)'s spread and
+    # one-ulp gap, not held (the run is chaotic: the pooled ASPP branch's
+    # BN normalizes two values a channel at batch 2). The U-Net flagship
+    # recomputed equals phase 7's run bit for bit.
+    out["deeplab_remat_step"] = _zoo_remat_step(torch, ckpt, dev)
+    remat, out["deeplab_remat"] = _zoo_train(
+        torch, _zoo_cfg(ckpt, "zoo-deeplab-remat", "--model.remat=true"),
+        TRAIN_ITERS, "deeplab_remat", dev)
+    run_r = out["deeplab_remat"]
+    check(run_r["peak_mem_bytes"] < out["deeplab_trainer"]["peak_mem_bytes"],
+          f"remat: peak {run_r['peak_mem_bytes']} not below "
+          f"{out['deeplab_trainer']['peak_mem_bytes']}")
+    run_r["gap_to_plain"] = gap(remat, run_a)
+    _, out["unet_remat"] = _zoo_train(
+        torch, _zoo_cfg(ckpt, "zoo-unet-remat", "--model.remat=true",
+                        seg_model="unet"), TRAIN_ITERS, "unet_remat", dev)
+    last = out["unet_remat"]["last_losses"]
+    check(all(last[k] == flagship["last_metrics"][k]
+              for k in ("loss_netG", "loss_netD", "loss_unet")),
+          f"remat: the U-Net flagship's losses {last} differ from phase "
+          f"7's {flagship['last_metrics']}")
+    out["unet_remat"]["flagship_peak_mem_bytes"] = flagship["peak_mem_bytes"]
+    for name in ("zoo-deeplab-remat", "zoo-unet-remat"):
+        shutil.rmtree(SAVE_DIR / name)
+    print(f"[zoo] remat: DeepLabV3 {run_r['steady_it_per_s']:.2f} it/s, "
+          f"peak {run_r['peak_mem_bytes']} bytes, losses after "
+          f"{VALID_STEP} iterations {run_r['gap_to_plain']:.3e} from (a)'s; "
+          f"one iteration: " + json.dumps(out["deeplab_remat_step"]) +
+          "; the U-Net flagship "
+          f"{out['unet_remat']['steady_it_per_s']:.2f} it/s, peak "
+          f"{out['unet_remat']['peak_mem_bytes']} bytes, its losses after "
+          f"{TRAIN_ITERS} iterations equal phase 7's")
+
+    # (c) accumulate=2
+    out["deeplab_accumulate"] = _zoo_accumulate(torch, ckpt, dev)
+    print(f"[zoo] accumulate=2: the segmenter moved at inner steps "
+          f"{out['deeplab_accumulate']['moved']}")
+
+    # (d) test_seg and export_seg on (a)'s best net
+    best = SAVE_DIR / cfg.run.name / "unet_best.pt"
+    scored = test_seg.run(cfg, model_file=str(best), device=dev)
+    check(abs(scored["test_dice"] - run_a["test_dice"]) <= 1e-6,
+          f"test_seg: {scored['test_dice']} against the trainer's "
+          f"{run_a['test_dice']}")
+    out["deeplab_trainer"]["test_seg_dice"] = scored["test_dice"]
+    out["deeplab_export"] = _zoo_export(torch, cfg, best, dev)
+    print(f"[zoo] test_seg {scored['test_dice']:.6f} (trainer "
+          f"{run_a['test_dice']:.6f}); export: " +
+          json.dumps(out["deeplab_export"]))
+
+    # (e) train_unet with DeepLabV2 and the bilinear U-Net
+    out["deeplabv2_unet_trainer"] = _zoo_train_unet(
+        torch, "zoo-deeplabv2", ["--model.seg_model=deeplabv2"], dev)
+    out["bilinear_unet_trainer"] = _zoo_train_unet(
+        torch, "zoo-bilinear", ["--model.bilinear=true"], dev)
+    return out
+
+
 def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
     ``bench.kernels`` (the histogram, at (4, 256, 256), then the cluster
@@ -1342,6 +1725,14 @@ def main() -> int:
     for label, stats in phase_isic(torch).items():
         print(f"[{label}] {card}: " + json.dumps(stats))
         paths[label] = stats["launches"]
+
+    # 7d. the segmenter zoo: DeepLabV3 in the flagship (remat, accumulate,
+    # test_seg, export_seg), DeepLabV2 and the bilinear U-Net in train_unet
+    for label, stats in phase_zoo(torch, ckpt,
+                                  trainer_stats["end2end_trainer"]).items():
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        if "launches" in stats:
+            paths[label] = stats["launches"]
 
     # 8. timing and the benchmark paths, in a fresh process
     records, bench_paths = run_timing_child()

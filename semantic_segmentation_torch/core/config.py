@@ -4,8 +4,8 @@ The port's own copy of ``semantic_segmentation_tpu/core/config.py``, with
 the same sections, field names and defaults, so one command line means the
 same run on both packages. It holds only the fields and presets the port
 uses, plus ``run.device``: an option of the JAX package that the port does
-not implement yet (the data mesh, gradient accumulation, other init laws)
-is refused, not ignored.
+not implement yet (the data mesh, other init laws) is refused, not
+ignored.
 
 CLI: ``--section.field=value`` overrides any leaf (parsed with the field's
 type; a tuple field splits on commas); ``--preset=name`` applies a named
@@ -39,7 +39,8 @@ class DataConfig:
 class ModelConfig:
     """Generator/discriminator/segnet choices (options/base_options.py:28-38,
     train_end2end_jsrt.py:61-64)."""
-    seg_model: str = "unet"          # unet | vit (swin, swin_unet)
+    seg_model: str = "unet"          # unet | deeplab | deeplabv2 |
+                                     # vit (swin, swin_unet)
     netG: str = "unet_256"           # unet_{256,...,32} | resnet_{9,6}blocks
     netD: str = "basic"              # basic | n_layers | pixel
     ngf: int = 64
@@ -58,6 +59,10 @@ class ModelConfig:
     # --use-checkpoint (train_options.py:87): recompute each Swin block's
     # activations in the backward (torch.utils.checkpoint)
     use_checkpoint: bool = False
+    # recompute the train-mode forwards of G, D and the segmenter in the
+    # end2end problems' backward instead of keeping their activations
+    # (torch.utils.checkpoint; the JAX package's jax.checkpoint)
+    remat: bool = False
     compute_dtype: str = "bfloat16"  # torch.autocast dtype; 'float32' = off
 
 
@@ -81,6 +86,9 @@ class OptimConfig:
     lr_decay_iters: int = 50
     plateau_patience: int = 5        # ReduceLROnPlateau(max, patience=5)
     plateau_factor: float = 0.1
+    accumulate: int = 1              # seg optimizer: the mean of k
+                                     # micro-gradients steps RMSprop on
+                                     # every k-th step (optax.MultiSteps)
 
 
 @dataclass
@@ -114,9 +122,24 @@ class RunConfig:
     save_every: int = 0              # end2end: save the engine state every N
                                      # iterations; pix2pix: G/D every N
                                      # epochs; 0 = only at the end
+    seg_pretrained: str = ""         # torch checkpoint to start the seg
+                                     # net from: torchvision
+                                     # deeplabv3_resnet50 / ImageNet
+                                     # resnet50 (backbone) / deeplabv2 /
+                                     # swin-tiny / reference unet, mapped
+                                     # onto the port's names
     model_file: str = ""             # test_seg: explicit checkpoint file
                                      # (the port's .pt, or a reference
                                      # milesial state_dict .pkl/.pth)
+    export_path: str = ""            # export_seg: artifact output ('' =
+                                     # <save_dir>/<name>/serving.pt2)
+    export_platforms: str = ""       # export_seg: comma list of devices
+                                     # (cpu, cuda), one artifact each; ''
+                                     # = run.device
+    export_batch: int = 0            # 0 = symbolic batch dim (one artifact,
+                                     # any batch size); >0 pins it
+    export_allow_fresh: bool = False  # export_seg: permit serializing a
+                                      # fresh random init
     wandb: bool = False
     wandb_project: str = "end2end-JSRT"
     profile_dir: str = ""            # torch.profiler Chrome trace dir

@@ -9,6 +9,9 @@ restate:
 - RMSprop(lr, alpha=0.99, eps=1e-8, weight_decay=1e-8, momentum=0.9) for
   the seg net (train_end2end_jsrt.py:71-72).
 
+``Accumulate`` restates ``optax.MultiSteps(every_k_schedule=k)``, the
+seg optimizer's ``optim.accumulate``.
+
 The JAX package's ``PlateauTracker`` restates torch's ReduceLROnPlateau;
 the port's trainer uses torch's own. ``lr_schedule`` is the epoch-indexed
 multiplier of the pix2pix policies (``networks.py:44-70``), set on an
@@ -31,6 +34,57 @@ def adam_torch(params, lr: float, beta1: float = 0.5,
 def rmsprop_torch(params, lr: float):
     return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8,
                                weight_decay=1e-8, momentum=0.9)
+
+
+class Accumulate(torch.optim.Optimizer):
+    """``optax.MultiSteps(inner, every_k_schedule=k)``: every ``step()``
+    folds the parameters' gradients into their running mean (Welford, as
+    optax: ``acc += (g - acc) / (n + 1)``); on every k-th the mean steps
+    ``inner`` and the accumulator restarts, and in between neither the
+    parameters nor ``inner``'s state move. A parameter without a gradient
+    counts as a zero one. ``param_groups`` are ``inner``'s, so a learning
+    rate set here (ReduceLROnPlateau) is ``inner``'s. The accumulator and
+    the mini-step count live in ``state_dict()``, which the engine's
+    roll-back and the checkpoints snapshot and restore."""
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k {every_k} < 1")
+        self.params = [p for g in inner.param_groups for p in g["params"]]
+        super().__init__(self.params, {})
+        self.inner, self.every_k = inner, every_k
+        self.param_groups = inner.param_groups
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Accumulate.step takes no closure")
+        n = self.mini_step
+        for p, a in zip(self.params, self.acc):
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            a.add_((g - a) / (n + 1))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return
+        for p, a in zip(self.params, self.acc):
+            p.grad = a.clone()
+        self.inner.step()
+        for a in self.acc:
+            a.zero_()
+        self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(),
+                "mini_step": self.mini_step, "acc": list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        self.inner.load_state_dict(state["inner"])
+        for a, v in zip(self.acc, state["acc"], strict=True):
+            a.copy_(v)
+        self.mini_step = int(state["mini_step"])
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):

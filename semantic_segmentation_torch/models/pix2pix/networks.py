@@ -24,16 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from semantic_segmentation_torch.ops.layers import BatchNorm2d, pix2pix_normal_
+from semantic_segmentation_torch.ops.layers import (BatchNorm2d, dropout_half,
+                                                    pix2pix_normal_)
 from semantic_segmentation_torch.ops.nas import MixedConvTranspose, arch_softmax
-
-
-def _dropout(h, keep, generator):
-    """Dropout(0.5) as flax applies it: the keep-mask ``keep`` if given,
-    else one drawn from ``generator``; kept values doubled."""
-    if keep is None:
-        keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.5
-    return torch.where(keep, h * 2.0, torch.zeros_like(h))
 
 
 def dropout_depths(num_downs: int):
@@ -73,6 +66,18 @@ class UnetGenerator(nn.Module):
         mode only)."""
         return self._block(x, 0, arch_upconv, dropout_masks, generator)
 
+    def draw_dropout(self, shape, generator=None, device=None) -> dict:
+        """{depth: keep-mask} for a train-mode forward on an NCHW input of
+        ``shape``, drawn from ``generator`` in the order the forward draws
+        them (the deepest first)."""
+        if not self.use_dropout:
+            return {}
+        b, _, hh, ww = shape
+        return {d: torch.rand((b, getattr(self, f"up_bn{d}").weight.shape[0],
+                               hh >> d, ww >> d), generator=generator,
+                              device=device) < 0.5
+                for d in reversed(dropout_depths(self.num_downs))}
+
     def _block(self, h, d, arch_upconv, dropout_masks, generator):
         """The skip block at depth ``d`` and, inside it, those below. A
         method, not a closure that calls itself: such a closure is a
@@ -94,8 +99,8 @@ class UnetGenerator(nn.Module):
             return torch.tanh(h.float())
         h = getattr(self, f"up_bn{d}")(h)
         if self.training and self.use_dropout and d in dropout_depths(nd):
-            h = _dropout(h, None if dropout_masks is None
-                         else dropout_masks[d], generator)
+            h = dropout_half(h, None if dropout_masks is None
+                             else dropout_masks[d], generator)
         return torch.cat([skip, h.to(skip.dtype)], dim=1)
 
 
@@ -120,7 +125,7 @@ class ResnetBlock(nn.Module):
         draw."""
         h = F.relu(self.bn0(self.conv0(_reflect(x, 1))))
         if self.training and self.use_dropout:
-            h = _dropout(h, keep, generator)
+            h = dropout_half(h, keep, generator)
         h = self.bn1(self.conv1(_reflect(h, 1)))
         return x + h.to(x.dtype)
 
@@ -149,6 +154,18 @@ class ResnetGenerator(nn.Module):
                 c, c // 2, 3, 2, 1, output_padding=1, bias=False))
             self.add_module(f"up_bn{i}", BatchNorm2d(c // 2))
         self.head = nn.Conv2d(ngf, output_nc, 7, bias=True)
+
+    def draw_dropout(self, shape, generator=None, device=None) -> dict:
+        """{block index: keep-mask} for a train-mode forward on an NCHW
+        input of ``shape``, drawn from ``generator`` in the forward's
+        order (the blocks run at a quarter of the input's size)."""
+        if not self.res0.use_dropout:
+            return {}
+        b, _, hh, ww = shape
+        size = (b, self.res0.conv0.out_channels, (hh + 3) // 4,
+                (ww + 3) // 4)
+        return {i: torch.rand(size, generator=generator, device=device) < 0.5
+                for i in range(self.n_blocks)}
 
     def forward(self, x, arch_upconv=None, dropout_masks=None,
                 generator: torch.Generator | None = None):

@@ -29,13 +29,13 @@ global generator only, not an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+
+from semantic_segmentation_torch.ops.layers import checkpointed, lecun_normal_
 
 LN_EPS = 1e-6        # flax LayerNorm's epsilon
 
@@ -86,15 +86,6 @@ def _index_on(ws: int, device: torch.device):
 @functools.lru_cache(maxsize=64)
 def _mask_on(h: int, w: int, ws: int, shift: int, device: torch.device):
     return torch.from_numpy(_shift_attn_mask(h, w, ws, shift)).to(device)
-
-
-def lecun_normal_(weight, fan_in: int, generator=None):
-    """flax's default kernel init: a normal truncated at two standard
-    deviations, scaled to variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
 
 
 def drop_path(x, keep_mask, rate: float):
@@ -293,7 +284,7 @@ class SwinUnet(nn.Module):
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, (nn.Linear, nn.Conv2d)):
-                    lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                    lecun_normal_(m.weight, generator)
                     if m.bias is not None:
                         m.bias.zero_()
                 elif isinstance(m, nn.LayerNorm):
@@ -318,8 +309,8 @@ class SwinUnet(nn.Module):
     def _run(self, name, x, masks):
         keep = masks.get(name) if masks is not None else None
         block = getattr(self, name)
-        if self.use_checkpoint and torch.is_grad_enabled():
-            return checkpoint(block, x, keep, use_reentrant=False)
+        if self.use_checkpoint:
+            return checkpointed(block, x, keep)
         return block(x, keep)
 
     def forward(self, x, drop_masks=None,

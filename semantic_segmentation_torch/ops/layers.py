@@ -10,9 +10,16 @@
 - ``call_module``: a forward on scratch BN buffers and, optionally, on
   parameters that are not the module's own.
 - ``pad_to_match``: the U-Net skip-concat pad (``unet/unet_parts.py:59-63``).
+- ``resize_bilinear_align_corners`` / ``upsample_bilinear_2x``: torch's
+  ``align_corners=True`` bilinear resize, which the JAX package restates
+  (``ops/flax_layers.py:363-391``).
+- ``dropout_half``: Dropout(0.5) as flax applies it, on a keep-mask.
+- ``checkpointed``: a call under ``torch.utils.checkpoint`` whose
+  recomputation leaves the BN running statistics alone (``model.remat``).
 - init laws: pix2pix ``init_type='normal'`` (N(0, 0.02), BN scale
-  N(1, 0.02), zero biases) and torch's kaiming-uniform with the fan-in the
-  JAX package uses (C_in * k * k, also for transposed convs).
+  N(1, 0.02), zero biases), torch's kaiming-uniform with the fan-in the
+  JAX package uses (C_in * k * k, also for transposed convs), flax's
+  default lecun-normal and DeepLabV2's He-normal on the fan-out.
 
 Max-pool is ``F.max_pool2d``: the JAX reshape pool is a TPU lowering of the
 same function (first-argmax gradient, as torch's).
@@ -20,12 +27,18 @@ same function (first-argmax gradient, as torch's).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+# set while ``checkpointed`` recomputes a forward in the backward
+_recompute = threading.local()
 
 
 class BatchNorm2d(nn.Module):
@@ -47,14 +60,42 @@ class BatchNorm2d(nn.Module):
                                 self.eps).to(x.dtype)
         x32 = x.float()
         var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(m).add_((1.0 - m) * mean)
-            self.running_var.mul_(m).add_((1.0 - m) * var)
+        if not getattr(_recompute, "on", False):
+            self._fold(mean, var)
         scale = self.weight * torch.rsqrt(var + self.eps)
         y = (x32 - mean[:, None, None]) * scale[:, None, None] \
             + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _fold(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(m).add_((1.0 - m) * mean)
+        self.running_var.mul_(m).add_((1.0 - m) * var)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the JAX package's
+    ``jax.checkpoint`` of ``model.remat``. The recomputation runs with
+    ``BatchNorm2d``'s running-statistics update off, so the statistics fold
+    once per forward, as without it. ``fn`` must draw nothing from an
+    explicit ``torch.Generator``: the recomputation would draw again."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
 
 
 def call_module(module, args, keep_stats: bool = True, params=None):
@@ -110,3 +151,43 @@ def kaiming_uniform_(weight, fan_in: int,
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         weight.uniform_(-bound, bound, generator=generator)
+
+
+def lecun_normal_(weight, generator: torch.Generator | None = None):
+    """flax's default kernel init: a normal truncated at two standard
+    deviations, scaled to variance 1 / fan_in (fan_in = C_in * k * k)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+
+def he_normal_fan_out_(weight, generator: torch.Generator | None = None):
+    """DeepLabV2's ``variance_scaling(2.0, 'fan_out', 'normal')``: an
+    untruncated normal of variance 2 / (C_out * k * k)."""
+    fan_out = weight.shape[0] * math.prod(weight.shape[2:])
+    with torch.no_grad():
+        weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+def dropout_half(h, keep, generator: torch.Generator | None = None):
+    """Dropout(0.5) as flax applies it: the keep-mask ``keep`` if given,
+    else one drawn from ``generator``; kept values doubled."""
+    if keep is None:
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.5
+    return torch.where(keep, h * 2.0, torch.zeros_like(h))
+
+
+def resize_bilinear_align_corners(x, size):
+    """NCHW bilinear resize to ``size`` with ``align_corners=True``
+    (``flax_layers.resize_bilinear_align_corners``)."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=True)
+
+
+def upsample_bilinear_2x(x):
+    """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)``
+    (``flax_layers.upsample_bilinear_2x``), in float32: the JAX package's
+    float32 interpolation weights promote a bfloat16 input."""
+    return resize_bilinear_align_corners(x.float(), (2 * x.shape[-2],
+                                                     2 * x.shape[-1]))

@@ -1,8 +1,8 @@
 """Shared entry-point plumbing — the port of
 ``semantic_segmentation_tpu/train/common.py``: dataset assembly and split
-policy, the segmentation problem as the eval entries build it, resolving
-trained weights onto it, and the autocast context of
-``model.compute_dtype``."""
+policy, the segmentation problem as the entries build it, the pretrained
+start (``run.seg_pretrained``) and resolving trained weights onto it, and
+the autocast context of ``model.compute_dtype``."""
 
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ from semantic_segmentation_torch.data.pipeline import (stack_dataset,
                                                        subset_split)
 from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
 from semantic_segmentation_torch.models.seg import SWIN_NAMES, SegProblem
-from semantic_segmentation_torch.utils.milesial import (is_milesial,
-                                                        port_unet_milesial)
+from semantic_segmentation_torch.utils.torch_port import (
+    is_milesial, load_milesial, load_state_dict, overlay, port_seg_checkpoint)
 
 log = logging.getLogger(__name__)
 
@@ -68,8 +68,7 @@ def seg_model_kwargs(cfg: Config) -> dict:
     """Per-backbone construction kwargs from the config: the U-Net's width
     and ups (--bilinear, base_features), the Swin-UNet's stochastic depth,
     recompute and input size (DROP_PATH_RATE yaml:4, --use-checkpoint
-    train_options.py:87). The other backbones come with ROADMAP.md section
-    1 item 7."""
+    train_options.py:87); the DeepLabs take their defaults."""
     m = cfg.model
     if m.seg_model == "unet":
         return {"bilinear": m.bilinear, "base_features": m.base_features}
@@ -77,9 +76,7 @@ def seg_model_kwargs(cfg: Config) -> dict:
         return {"drop_path_rate": m.drop_path_rate,
                 "use_checkpoint": m.use_checkpoint,
                 "img_size": cfg.data.image_size}
-    raise NotImplementedError(
-        f"seg model {m.seg_model!r} is not ported yet (ROADMAP.md section 1 "
-        "item 7)")
+    return {}
 
 
 def seg_metric(cfg: Config) -> str:
@@ -89,14 +86,31 @@ def seg_metric(cfg: Config) -> str:
 
 
 def build_seg_problem(cfg: Config, device) -> SegProblem:
-    """The seg net as test_seg builds it (backbone, width, classes from the
-    config), its weights drawn from a CPU generator seeded with
-    ``run.seed``, on ``device``."""
+    """The seg net as train_unet, test_seg and export_seg build it
+    (backbone, width, classes, ``optim.accumulate`` from the config), its
+    weights drawn from a CPU generator seeded with ``run.seed``, on
+    ``device``, started from ``run.seg_pretrained`` when it is set."""
     m = cfg.model
-    return SegProblem(m.seg_model, m.output_nc, m.classes,
-                      lr=cfg.optim.unet_lr, device=device,
-                      generator=torch.Generator().manual_seed(cfg.run.seed),
-                      **seg_model_kwargs(cfg))
+    seg = SegProblem(m.seg_model, m.output_nc, m.classes,
+                     lr=cfg.optim.unet_lr, device=device,
+                     generator=torch.Generator().manual_seed(cfg.run.seed),
+                     accumulate=cfg.optim.accumulate,
+                     **seg_model_kwargs(cfg))
+    apply_seg_pretrained(cfg, seg.net)
+    return seg
+
+
+def apply_seg_pretrained(cfg: Config, net: torch.nn.Module):
+    """``run.seg_pretrained``: overlay a reference torch checkpoint, mapped
+    onto the port's names (``utils/torch_port``), on the fresh init in
+    place (JAX ``train/common.py:64-77``). A partial one (an ImageNet
+    resnet50: the backbone) keeps the fresh init elsewhere."""
+    if cfg.run.seg_pretrained:
+        overlay(net, port_seg_checkpoint(
+            cfg.model.seg_model, load_state_dict(cfg.run.seg_pretrained),
+            cfg.model.classes))
+        log.info("seg net started from %s", cfg.run.seg_pretrained)
+    return net
 
 
 def _unet_state_from_checkpoint(state: dict) -> dict:
@@ -112,10 +126,11 @@ def _unet_state_from_checkpoint(state: dict) -> dict:
 
 def load_seg_state(cfg: Config, net: torch.nn.Module, model_file: str = ""):
     """Load trained weights into ``net`` in place: an explicit file (the
-    port's ``.pt`` ``state_dict``, e.g. ``unet_best.pt``, or a reference
-    milesial ``state_dict`` ``.pkl``/``.pth``, mapped on the fly —
-    test_lung.py:67's opt.model_dir analogue), else the run's best
-    checkpoint in ``<save_dir>/<name>/ckpt`` (engine or supervised layout).
+    port's ``.pt`` ``state_dict``, e.g. ``unet_best.pt``, of any
+    segmenter, or for ``unet`` a reference milesial ``state_dict``
+    ``.pkl``/``.pth``, mapped on the fly — test_lung.py:67's opt.model_dir
+    analogue), else the run's best checkpoint in ``<save_dir>/<name>/ckpt``
+    (engine or supervised layout).
 
     Returns ``(net, loaded)``: ``loaded`` is False when nothing resolved and
     ``net`` keeps its fresh init. A failed lookup creates no directory."""
@@ -127,11 +142,11 @@ def load_seg_state(cfg: Config, net: torch.nn.Module, model_file: str = ""):
         if not model_file.endswith((".pt", ".pth", ".pkl")):
             raise ValueError(f"model_file {model_file!r}: expected a .pt, "
                              ".pth or .pkl state_dict")
-        sd = torch.load(model_file, map_location="cpu", weights_only=True)
-        if isinstance(sd.get("state_dict"), dict):
-            sd = sd["state_dict"]
-        net.load_state_dict(port_unet_milesial(sd) if is_milesial(sd)
-                            else sd)
+        sd = load_state_dict(model_file)
+        if cfg.model.seg_model == "unet" and is_milesial(sd):
+            load_milesial(net, sd)
+        else:
+            net.load_state_dict(sd)
         return net, True
     ckpt_dir = os.path.join(cfg.run.save_dir, cfg.run.name, "ckpt")
     if not os.path.isdir(ckpt_dir):

@@ -19,8 +19,15 @@ The four Betty problems become closures over the shared nets:
 - arch (outer, :229-236): the segmenter's validation loss, read by the
   darts and unroll hypergradients (not evaluated under ``decay_only``).
 
-The segmenter is the U-Net or the Swin-UNet (``--model.seg_model=vit``),
-whose train-mode forwards draw stochastic-depth masks.
+The segmenter is the U-Net (transposed-conv or ``--model.bilinear``),
+DeepLabV3 (``--model.seg_model=deeplab``), whose train-mode forwards draw
+the ASPP dropout, DeepLabV2 (``deeplabv2``) or the Swin-UNet (``vit``),
+whose train-mode forwards draw stochastic-depth masks. ``--model.remat``
+recomputes the train-mode forwards of G, D and the segmenter in the
+backward (JAX ``train_end2end.py:57-74``), their draws made before each
+checkpointed call; ``--optim.accumulate=k`` steps the segmenter's RMSprop
+on the mean of k micro-gradients; ``--run.seg_pretrained`` starts the
+segmenter from a reference torch checkpoint.
 
 Validation Dice (Jaccard for ISIC) every ``valid_step``; best-val
 snapshot; ReduceLROnPlateau on the unet lr every len(train) steps; the
@@ -65,10 +72,12 @@ from semantic_segmentation_torch.models.pix2pix.model import Pix2Pix
 from semantic_segmentation_torch.models.seg import SegProblem, seg_loss_fn
 from semantic_segmentation_torch.ops import image as iops
 from semantic_segmentation_torch.ops.augment import random_augment_batch
+from semantic_segmentation_torch.ops.layers import checkpointed
 from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 from semantic_segmentation_torch.ops.metrics import eval_batch_score
 from semantic_segmentation_torch.ops.photometric import random_photometric
-from semantic_segmentation_torch.train.common import (autocast_for,
+from semantic_segmentation_torch.train.common import (apply_seg_pretrained,
+                                                      autocast_for,
                                                       load_splits, seg_metric,
                                                       seg_model_kwargs)
 from semantic_segmentation_torch.train.train_pix2pix import (build_pix2pix,
@@ -96,8 +105,9 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
     (``InnerProblem``): ``generator`` draws what ``draws`` does not inject:
     'affine' (B, 3, 3), the augment matrices; 'dropout' ({depth or block:
     keep-mask}), G's dropout; 'photometric' (``draw_photometric``'s dict);
-    'seg_real', 'seg_fake' ({block: (2, B) keep-masks}), the Swin's drop
-    paths in the two segmenter forwards. ``params`` ({problem name or
+    'seg_real', 'seg_fake' (the Swin's {block: (2, B) keep-masks}, or
+    DeepLabV3's {'aspp': keep-mask}), the draws of the two segmenter
+    forwards. ``params`` ({problem name or
     'arch': tensors}) runs each net it names on those weights instead of
     its module's, every net then on scratch BN buffers
     (train_end2end.py:75-144 of the JAX package reads ``state.params`` the
@@ -107,6 +117,28 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
     postprocess = cfg.engine.fake_postprocess
     if postprocess not in ("uint8_chain", "photometric", "minmax"):
         raise ValueError(f"unknown fake_postprocess {postprocess!r}")
+
+    remat = cfg.model.remat
+
+    def run(fn, *args):
+        """``fn(*args)``, its activations recomputed in the backward under
+        ``model.remat``."""
+        return checkpointed(fn, *args) if remat else fn(*args)
+
+    def g_fwd(mask, arch_upconv, masks, generator, keep, g):
+        """G in train mode; under remat its dropout is drawn before the
+        checkpointed call, in the order the forward would draw it."""
+        if remat and masks is None:
+            masks = p2p.G.draw_dropout(mask.shape, generator, mask.device)
+        return run(p2p.g_apply, mask, arch_upconv, True, masks,
+                   None if remat else generator, keep, g)
+
+    def seg_fwd(images, u, keep, masks, generator):
+        """The segmenter in train mode, its draws made first under remat."""
+        if remat and masks is None:
+            masks = seg.draw(images.shape, generator)
+        return run(seg.apply, images, True, u, keep, masks,
+                   None if remat else generator)
 
     def nets(params):
         """(G, D, U-Net weights, arch tables, keep_stats) of one call: the
@@ -121,9 +153,10 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
         mask = _nchw(batch["mask_pix2pix"].float())
         image = _nchw(batch["image_pix2pix"].float())
         with amp():
-            fake = p2p.g_apply(mask, arch["upconv"], True,
-                               draws.get("dropout"), generator, keep, g)
-            pred_fake = p2p.d_apply(torch.cat([mask, fake], 1), True, keep, d)
+            fake = g_fwd(mask, arch["upconv"], draws.get("dropout"),
+                         generator, keep, g)
+            pred_fake = run(p2p.d_apply, torch.cat([mask, fake], 1), True,
+                            keep, d)
         return gan_loss(pred_fake, True, p2p.gan_mode) + \
             p2p.lambda_L1 * l1_loss(fake, image)
 
@@ -132,12 +165,13 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
         mask = _nchw(batch["mask_pix2pix"].float())
         image = _nchw(batch["image_pix2pix"].float())
         with amp(), torch.no_grad():
-            fake = p2p.g_apply(mask, arch["upconv"], True,
-                               draws.get("dropout"), generator, keep, g)
+            fake = g_fwd(mask, arch["upconv"], draws.get("dropout"),
+                         generator, keep, g)
         with amp():
-            pred_fake = p2p.d_apply(torch.cat([mask, fake], 1), True, keep, d)
-            pred_real = p2p.d_apply(torch.cat([mask, image], 1), True, keep,
-                                    d)
+            pred_fake = run(p2p.d_apply, torch.cat([mask, fake], 1), True,
+                            keep, d)
+            pred_real = run(p2p.d_apply, torch.cat([mask, image], 1), True,
+                            keep, d)
         return 0.5 * (gan_loss(pred_fake, False, p2p.gan_mode)
                       + gan_loss(pred_real, True, p2p.gan_mode))
 
@@ -147,17 +181,16 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
         masks = batch["mask"].float()                       # NHWC
         with amp():
             # real branch (train_end2end_jsrt.py:181-183)
-            logits = seg.apply(images, True, u, keep, draws.get("seg_real"),
-                               generator)
+            logits = seg_fwd(images, u, keep, draws.get("seg_real"),
+                             generator)
             loss = seg_loss_fn(logits, _nchw(masks), seg.n_classes,
                                seg.loss_type)
             # fake branch (:186-204)
             aug = random_augment_batch(masks, generator, draws.get("affine"))
             fake_mask = iops.threshold_mask(aug, 0.1)
             with torch.no_grad() if detach else contextlib.nullcontext():
-                fake_image = p2p.g_apply(_nchw(fake_mask), arch["upconv"],
-                                         True, draws.get("dropout"),
-                                         generator, keep, g)
+                fake_image = g_fwd(_nchw(fake_mask), arch["upconv"],
+                                   draws.get("dropout"), generator, keep, g)
             if postprocess == "uint8_chain":
                 # integer ops: no gradient flows through them (the JAX
                 # package's integer cast gives zero), so say so
@@ -174,8 +207,8 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
                 fake_image = _nchw(u8.float() / 255.0)
             else:
                 fake_image = iops.minmax_normalize(fake_image)
-            fake_logits = seg.apply(fake_image, True, u, keep,
-                                    draws.get("seg_fake"), generator)
+            fake_logits = seg_fwd(fake_image, u, keep, draws.get("seg_fake"),
+                                  generator)
             fake_loss = seg_loss_fn(fake_logits, _nchw(fake_mask),
                                     seg.n_classes, seg.loss_type)
         return loss + loss_lambda * fake_loss
@@ -183,7 +216,8 @@ def build_problems(cfg: Config, p2p: Pix2Pix, seg: SegProblem, amp,
     def outer_loss(params, val_batch):
         """The arch problem (:229-236): the segmenter's validation loss, a
         train-mode forward (batch statistics) on scratch BN buffers, its
-        drop paths drawn from ``outer_generator``."""
+        draws from ``outer_generator``; not recomputed under remat, as in
+        the JAX package."""
         u = params.get("unet") if params is not None else None
         images = _nchw(val_batch["image"].float())
         masks = _nchw(val_batch["mask"].float())
@@ -205,7 +239,8 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     """Models (weights drawn from a CPU generator seeded with ``seed``, then
     moved to ``device``), problems and engine. Returns (engine, p2p, seg).
     With ``run.pretrained_pix2pix`` G, D and the arch tables are loaded from
-    that directory (``train_pix2pix.save_model``'s files) before any
+    that directory (``train_pix2pix.save_model``'s files), and with
+    ``run.seg_pretrained`` the segmenter from that checkpoint, before any
     optimizer is made."""
     device = torch.device(device)
     seed = cfg.run.seed if seed is None else seed
@@ -217,7 +252,9 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     seg = SegProblem(m.seg_model, m.output_nc, m.classes,
                      lr=cfg.optim.unet_lr, loss_type=seg_metric(cfg),
                      device=device, generator=init_gen,
+                     accumulate=cfg.optim.accumulate,
                      **seg_model_kwargs(cfg))
+    apply_seg_pretrained(cfg, seg.net)
     hyper_gen = torch.Generator(device=device).manual_seed(seed + 6)
     problems, outer_loss = build_problems(cfg, p2p, seg,
                                           autocast_for(cfg, device),

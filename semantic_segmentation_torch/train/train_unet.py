@@ -1,6 +1,8 @@
 """Supervised segmentation training, the baseline GenSeg is judged against —
 the port of ``semantic_segmentation_tpu/train/train_unet.py``: k-shot
-training of the U-Net with RMSprop, Dice on the validation split every
+training of the segmenter (any of ``model.seg_model``; from
+``run.seg_pretrained`` when set) with RMSprop (``optim.accumulate``
+micro-steps per update), Dice on the validation split every
 ``engine.valid_step`` steps, ReduceLROnPlateau on the best validation Dice,
 a checkpoint at every new best, and the test and OOD Dice of the final net.
 
@@ -57,8 +59,9 @@ def evaluate_split(net, data, batch_size: int, n_classes: int = 1,
 
 def train_step(seg: SegProblem, optimizer, batch, amp, device,
                generator: torch.Generator | None = None):
-    """One RMSprop step of the seg net on a numpy NHWC batch (the Swin's
-    drop paths drawn from ``generator``); returns the loss."""
+    """One optimizer step of the seg net on a numpy NHWC batch (its
+    train-mode draws, the Swin's drop paths or DeepLabV3's dropout, from
+    ``generator``); returns the loss."""
     images = _nchw(torch.from_numpy(batch["image"]).float().to(device))
     masks = _nchw(torch.from_numpy(batch["mask"]).to(device))
     with amp():

@@ -1,6 +1,7 @@
 """The port's nets against the JAX package's on bridged weights, in f32:
 the generator (unet_64, so dropout is live, with the JAX package's dropout
-masks injected), the PatchGAN and the U-Net. Train- and eval-mode forward
+masks injected), the PatchGAN and the U-Net (transposed-conv ups at base 4,
+bilinear ups at base 8). Train- and eval-mode forward
 (rtol 1e-4, atol 1e-5), gradients with respect to params and arch (within
 1e-4 of each tensor's largest magnitude) and the BN running stats after one
 train forward (within 1e-5)."""
@@ -150,6 +151,23 @@ def test_unet():
         np.float32)
     variables = ju.init(jax.random.key(3), jnp.asarray(x))
     _check_net(ju, variables, UNet(1, 1, 4), jnp.asarray(x))
+
+
+def test_unet_bilinear():
+    ju = JUNet(1, 1, bilinear=True, base_features=8, dtype=jnp.float32)
+    x = np.random.default_rng(4).normal(size=(2, 32, 32, 1)).astype(
+        np.float32)
+    variables = ju.init(jax.random.key(4), jnp.asarray(x))
+    _check_net(ju, variables, UNet(1, 1, 8, bilinear=True), jnp.asarray(x))
+
+
+def test_unet_bilinear_parameter_count():
+    ju = JUNet(1, 1, bilinear=True, base_features=64, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: ju.init(jax.random.key(0),
+                                            jnp.zeros((1, 64, 64, 1))))
+    n_j = sum(int(np.prod(a.shape)) for a in
+              jax.tree_util.tree_leaves(shapes["params"]))
+    assert sum(p.numel() for p in UNet(1, 1, 64, True).parameters()) == n_j
 
 
 def test_unet64_parameter_count():

@@ -3,7 +3,11 @@ U-Net ``state_dict`` (``tests/torch_oracles.TorchMilesialUNet``, random
 weights and BN statistics) saved as ``.pth`` scores the same test and OOD
 Dice through both entries' ``run`` on one folder fixture with an OOD folder,
 within 1e-5; the port's own ``unet_best.pt`` and its two checkpoint layouts
-resolve; a bilinear-layout state dict and a ``.msgpack`` are refused."""
+resolve; a bilinear-layout state dict is refused by the transposed-conv
+net, and a ``.msgpack`` by both; a milesial-named bilinear state dict at the
+JAX package's widths scores through both entries at ``--model.bilinear``,
+while one at milesial's published widths (the DoubleConv mid width half the
+concatenated input's, not the upsampled input's) fits neither package."""
 import os
 
 import numpy as np
@@ -20,7 +24,7 @@ from semantic_segmentation_torch.train.common import (build_seg_problem,
                                                       load_seg_state,
                                                       load_splits)
 from semantic_segmentation_torch.train.train_unet import evaluate_split
-from semantic_segmentation_torch.utils.milesial import milesial_key_map
+from semantic_segmentation_torch.utils.torch_port import milesial_key_map
 from torch_oracles import TorchMilesialUNet
 
 
@@ -135,3 +139,64 @@ def test_bilinear_layout_and_msgpack_are_refused(folders, tmp_path):
         load_seg_state(cfg, net, path)
     with pytest.raises(NotImplementedError, match="msgpack"):
         load_seg_state(cfg, net, str(tmp_path / "unet_best.msgpack"))
+
+
+def _bilinear_milesial(seed: int, published_widths: bool = False) -> dict:
+    """A milesial-named state dict of the bilinear U-Net at base 8: the
+    port's ``UNet(bilinear=True)`` keys renamed to the reference's, random
+    weights (the port's init moved a little) and BN statistics.
+    ``published_widths`` widens each up
+    block's mid conv to milesial's ``in_channels // 2``."""
+    gen = torch.Generator().manual_seed(seed)
+    port = build_seg_problem(parse_config(
+        ["--model.base_features=8", "--model.bilinear=true"]), "cpu").net
+    own = port.state_dict()
+    keys = milesial_key_map({})         # no up{i}.up: the bilinear layout
+    assert "up1.up.weight" not in keys
+    sd = {}
+    for src, dst in keys.items():
+        shape = list(own[dst].shape)
+        if published_widths and dst.startswith("up") and ".conv." in dst:
+            mid = own[dst.rsplit(".conv.", 1)[0] + ".conv.conv0.weight"
+                      ].shape[1] // 2
+            if ".conv0." in dst or ".bn0." in dst:
+                shape[0] = mid
+            elif ".conv1." in dst:
+                shape[1] = mid
+        if dst.endswith("running_var"):
+            sd[src] = torch.rand(shape, generator=gen) + 0.5
+        elif dst.endswith("running_mean"):
+            sd[src] = 0.1 * torch.randn(shape, generator=gen)
+        elif list(own[dst].shape) == shape:   # the init, moved a little
+            sd[src] = own[dst] + 0.01 * torch.randn(shape, generator=gen)
+        else:
+            sd[src] = 0.1 * torch.randn(shape, generator=gen)
+        sd[src.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
+            torch.tensor(3)
+    sd["outc.conv.bias"] = torch.full_like(sd["outc.conv.bias"], 0.3)
+    return sd
+
+
+def test_bilinear_milesial_scores_as_jax_test_seg(folders, tmp_path):
+    path = str(tmp_path / "bilinear.pth")
+    torch.save(_bilinear_milesial(2), path)
+    argv = _argv(folders, "bilinear", "--model.bilinear=true",
+                 f"--run.model_file={path}")
+    ref = jtest_seg.run(jparse(argv), model_file=path)
+    got = test_seg.run(parse_config(argv + ["--run.device=cpu"]),
+                       model_file=path)
+    assert sorted(got) == sorted(ref) == ["ood_sz", "test_dice"]
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-5, (k, got[k], ref[k])
+    print("bilinear test_seg against JAX:",
+          {k: (got[k], ref[k]) for k in ref})
+    assert 0.05 < got["test_dice"] < 1.0
+    # milesial's published widths fit neither package
+    wide = str(tmp_path / "published.pth")
+    torch.save(_bilinear_milesial(2, published_widths=True), wide)
+    argv = _argv(folders, "published", "--model.bilinear=true")
+    with pytest.raises(Exception, match="shape"):
+        jtest_seg.run(jparse(argv), model_file=wide)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        test_seg.run(parse_config(argv + ["--run.device=cpu"]),
+                     model_file=wide)

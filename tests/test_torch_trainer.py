@@ -116,7 +116,7 @@ def test_hypergrad_none_leaves_arch(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--run.data_axis=data"],
-                                  ["--optim.accumulate=2"],
+                                  ["--model.init_type=xavier"],
                                   ["--preset=end2end_3d"]])
 def test_unported_options_are_refused(argv):
     # an option the port does not implement yet fails loudly instead of
