@@ -123,6 +123,24 @@ Phases, each of which stops the script with a nonzero exit on failure:
    steps with ``--model.seg_model=deeplabv2`` (ResNet-101, multi-grid,
    output stride 16) and with ``--model.bilinear=true`` (finite losses, a
    best_val, no kernel launched; steps/s and peak);
+7e. GenSeg-3D at full width (64^3 crops, batch 1, the 3D NAS generator at
+   ngf 64 with 6 downs, instance norm and dropout at d = 4, the 3D
+   PatchGAN at ndf 64, UNet3D at 64/128/256/512, bf16 autocast): (a)
+   ``train_end2end_3d.train`` of the ``end2end_3d`` preset (``decay_only``)
+   for 20 iterations, valid_step 10, on synthetic volumes (finite losses
+   and val Dice; steady it/s and peak beside phase 7's); (b) 3 engine
+   iterations of ``decay_only`` twice (the run-to-run spread) and of the
+   reference's ``darts`` from the same seed: the darts hypergradient
+   exactly 0, and darts' G, D, U-Net and arch equal to decay_only's bit
+   for bit if the two decay_only runs are, else within 4x their spread;
+   (c) 10 iterations from a NIfTI folder written under build/ (12 int16
+   volumes of 72x80x60 with scl_slope 2 and truths: CropOrPad crops two
+   axes and pads one), the test Dice printed; (d) ``train_pix2pix_3d`` for
+   10 steps, then ``evaluate_generation``'s CSV, one row of finite metrics
+   per test volume; (e) ``train_unet3d`` for 20 steps at base 64 (steps/s
+   and peak); (f) the CPU test's 3-iteration engine case (32^3, nd 3,
+   ngf = ndf = 4, base 4, f32) on the card against the CPU, losses within
+   1e-4 relative. No port kernel launches on any 3D path (each counted);
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -1537,6 +1555,336 @@ def phase_zoo(torch, ckpt, flagship: dict, dev="cuda"):
     return out
 
 
+# 7e. GenSeg-3D: the end2end_3d program at full width (64^3 crops, batch 1,
+# the 3D NAS generator at ngf 64 with 6 downs and instance norm, the 3D
+# PatchGAN at ndf 64, UNet3D at 64/128/256/512, bf16 autocast), its
+# reference mode, a NIfTI folder, and the two other 3D trainers
+RUN3D = ROOT / "build" / "chip_smoke_run3d"
+NIFTI_DIR = DATA_DIR / "nifti"
+E3D_ITERS, E3D_MODE_ITERS, E3D_NIFTI_ITERS = 20, 3, 10
+P2P3D_STEPS, UNET3D_STEPS = 10, 20
+E3D_ARGV = ["--preset=end2end_3d", "--data.synthetic=true",
+            "--data.n_train=4", "--data.n_val=2", "--data.n_test=2",
+            f"--engine.valid_step={VALID_STEP}",
+            "--run.final_checkpoint=false", f"--run.save_dir={RUN3D}"]
+SMALL3D_ARGV = ["--preset=end2end_3d", "--data.synthetic=true",
+                "--data.n_train=2", "--data.n_val=2", "--data.n_test=1",
+                "--model.ngf=4", "--model.ndf=4", "--model.base_features=4",
+                "--model.compute_dtype=float32"]
+
+
+def _check_full_3d(cfg, label: str):
+    m = cfg.model
+    check((m.ngf, m.ndf, m.base_features, m.norm, m.compute_dtype,
+           cfg.data.batch_size, m.no_dropout) ==
+          (64, 64, 64, "instance", "bfloat16", 1, False),
+          f"{label}: not the full-width end2end_3d configuration")
+
+
+def _launches_zero(kernels, label: str) -> dict:
+    launches = dict(kernels.LAUNCHES)
+    check(all(v == 0 for v in launches.values()),
+          f"{label}: a TPU-kernel port launched on the 3D path: {launches}")
+    return launches
+
+
+def _e3d_train(torch, argv, iters: int, label: str):
+    """``train_end2end_3d.train`` at full width (crop 64, nd 6, linear) on
+    the card; finite losses and val Dice, no kernel launched. Returns the
+    stats with steady it/s and the peak."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_end2end_3d
+    cfg = parse_config(E3D_ARGV + argv)
+    _check_full_3d(cfg, label)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    engine, results = train_end2end_3d.train(cfg, train_iters=iters,
+                                             crop=64, num_downs=6,
+                                             upsampling="linear",
+                                             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches_zero(kernels, label)
+    for c in results["chunks"]:
+        for k in ("loss_netG", "loss_netD", "loss_unet", "val_score"):
+            check(math.isfinite(c[k]), f"{label}: {k} not finite: {c}")
+    check(math.isfinite(results["best_val"]) and
+          math.isfinite(results.get("test_dice", float("nan"))),
+          f"{label}: no best_val/test_dice: {results}")
+    chunks = results["chunks"]
+    steady = chunks[1:] or chunks
+    its = sum(c["iters"] for c in steady) / sum(c["seconds"] for c in steady)
+    stats = {"iters": iters, "wall_s": wall,
+             "first_chunk_s": chunks[0]["seconds"],
+             "steady_it_per_s": its, "steady_iter_ms": 1e3 / its,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "val_scores": [c["val_score"] for c in chunks],
+             "best_val": results["best_val"],
+             "test_dice": results["test_dice"],
+             "last_metrics": {k: chunks[-1][k] for k in (
+                 "loss_netG", "loss_netD", "loss_unet", "arch_grad_norm")},
+             "launches": launches}
+    del engine
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _e3d_mode_run(torch, mode: str, dev="cuda", small=False):
+    """``E3D_MODE_ITERS`` engine iterations of ``mode`` from the seed's
+    state (full width on the card, or the CPU test's small case), the
+    trainer's index streams. Returns (metrics per iteration, G/D/U-Net
+    state and arch on the CPU)."""
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.data.pipeline import take_batch, \
+        to_device_split
+    from semantic_segmentation_torch.train.train_end2end import index_streams
+    from semantic_segmentation_torch.train.train_end2end_3d import (
+        build_engine, load_volume_splits)
+    argv = (SMALL3D_ARGV if small else E3D_ARGV) + [
+        f"--engine.hypergrad={mode}"]
+    cfg = parse_config(argv)
+    crop, nd = (32, 3) if small else (64, 6)
+    engine, model = build_engine(cfg, dev, nd, "linear")
+    splits = load_volume_splits(cfg, crop)
+    tr, va = (to_device_split(splits[k], dev) for k in ("train", "val"))
+    streams, val_stream = index_streams(cfg, cfg.data.n_train,
+                                        cfg.data.n_val)
+    out = []
+    for _ in range(E3D_MODE_ITERS):
+        m = engine.engine_step([{n: take_batch(tr, next(s))
+                                 for n, s in streams.items()}],
+                               take_batch(va, next(val_stream)))
+        out.append({k: float(v) for k, v in m.items()})
+    state = {f"{n}.{k}": v.detach().cpu()
+             for n, net in (("G", model.G), ("D", model.D),
+                            ("U", model.seg))
+             for k, v in net.state_dict().items()}
+    state["arch"] = model.arch["conv"].detach().cpu()
+    del engine, model
+    torch.cuda.empty_cache()
+    return out, state
+
+
+def _e3d_small_card_vs_cpu(torch):
+    """The CPU test's 3-iteration case (32^3, nd 3, ngf = ndf = 4, base 4,
+    f32, ``decay_only``) on the card and on the CPU, each iteration started
+    on the card from the CPU engine's state before it (G, D, the U-Net, the
+    optimizers' states, the arch table and its Adam), the same batches:
+    each iteration's losses then hold one step of each device's rounding.
+    Run free, the U-Net's RMSprop turns rounding in its near-zero
+    gradients into steps of 10 lr whose sign rounding decides, and two
+    CPU runs alone (oneDNN against torch's native conv kernels) part by
+    2.5e-4 in ``loss_unet`` by the third iteration. Returns the card's
+    and the CPU's metrics per iteration."""
+    import copy
+
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.data.pipeline import take_batch, \
+        to_device_split
+    from semantic_segmentation_torch.train.train_end2end import index_streams
+    from semantic_segmentation_torch.train.train_end2end_3d import (
+        build_engine, load_volume_splits)
+    cfg = parse_config(SMALL3D_ARGV + ["--engine.hypergrad=decay_only"])
+    devices = ("cpu", "cuda")
+    engines = {d: build_engine(cfg, d, 3, "linear")[0] for d in devices}
+    splits = load_volume_splits(cfg, 32)
+    data = {d: {k: to_device_split(splits[k], d) for k in ("train", "val")}
+            for d in devices}
+    streams, val_stream = index_streams(cfg, cfg.data.n_train,
+                                        cfg.data.n_val)
+    out = {d: [] for d in devices}
+    card = engines["cuda"]
+    for _ in range(E3D_MODE_ITERS):
+        # a deep copy: the optimizers share a loaded "step" tensor
+        state = copy.deepcopy(engines["cpu"].state_dict())
+        state["generator"] = card.generator.get_state()
+        state["hyper_generator"] = card.hyper_generator.get_state()
+        card.load_state_dict(state)
+        idx = {n: next(s) for n, s in streams.items()}
+        vidx = next(val_stream)
+        for d in devices:
+            m = engines[d].engine_step(
+                [{n: take_batch(data[d]["train"], ix)
+                  for n, ix in idx.items()}],
+                take_batch(data[d]["val"], vidx))
+            out[d].append({k: float(v) for k, v in m.items()})
+    del engines, card
+    torch.cuda.empty_cache()
+    return out["cuda"], out["cpu"]
+
+
+def write_nifti_folder(n: int = 12, shape=(72, 80, 60)):
+    """``n`` paired int16 volumes with ``scl_slope`` 2 and binary truths
+    under NIFTI_DIR (imgsA/, imgsB/, truths/): a blob in A and B, B's
+    texture its own. 72 x 80 x 60 around the 64^3 crop, so that CropOrPad
+    crops two axes and pads the third."""
+    import struct
+
+    import numpy as np
+    from semantic_segmentation_torch.data.nifti import write_nifti
+    for d in ("imgsA", "imgsB", "truths"):
+        (NIFTI_DIR / d).mkdir(parents=True, exist_ok=True)
+    zz, yy, xx = np.meshgrid(*(np.arange(s) / s for s in shape),
+                             indexing="ij")
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        c, r = rng.uniform(0.35, 0.65, 3), rng.uniform(0.12, 0.25, 3)
+        truth = (((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2
+                 + ((xx - c[2]) / r[2]) ** 2) < 1.0
+        a = 100 + 300 * truth + rng.normal(0, 20, shape)
+        b = 200 + 150 * truth + 80 * np.sin(9 * xx) * np.cos(7 * yy) \
+            + rng.normal(0, 20, shape)
+        for d, vol in (("imgsA", a), ("imgsB", b), ("truths", truth)):
+            path = NIFTI_DIR / d / f"vol{i:02d}.nii"
+            write_nifti(str(path), vol.astype(np.uint8 if d == "truths"
+                                              else np.int16))
+            if d != "truths":
+                with open(path, "r+b") as f:       # scl_slope = 2
+                    f.seek(112)
+                    f.write(struct.pack("<f", 2.0))
+    return n
+
+
+def phase_3d(torch, flagship: dict) -> dict:
+    """Phase 7e: GenSeg-3D on the card. Returns {label: stats}."""
+    import numpy as np
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import (train_pix2pix_3d,
+                                                   train_unet3d)
+    from semantic_segmentation_torch.train.train_end2end_3d import \
+        load_volume_splits
+    out = {}
+    # (a) end2end_3d at full width on synthetic 64^3 volumes
+    out["end2end_3d"] = a = _e3d_train(torch, [], E3D_ITERS, "end2end_3d")
+    print(f"[end2end_3d] steady {a['steady_it_per_s']:.3f} it/s, peak "
+          f"{a['peak_mem_bytes']} bytes, val Dice {a['val_scores']}; the "
+          f"U-Net flagship (phase 7) in this call "
+          f"{flagship['steady_it_per_s']:.2f} it/s at "
+          f"{flagship['peak_mem_bytes']} bytes")
+
+    # (b) the preset's decay_only against the reference's darts, 3
+    # iterations each from the same state; two decay_only runs for the
+    # run-to-run spread
+    kernels.reset_launches()
+    d1, s1 = _e3d_mode_run(torch, "decay_only")
+    d2, s2 = _e3d_mode_run(torch, "decay_only")
+    dk, sk = _e3d_mode_run(torch, "darts")
+    launches = _launches_zero(kernels, "end2end_3d modes")
+    check(all(m["arch_grad_norm"] == 0.0 for m in dk),
+          f"end2end_3d darts: hypergradient not exactly 0: {dk}")
+
+    def gap(x, y):
+        return max((x[k].float() - y[k].float()).abs().max().item()
+                   for k in x)
+
+    spread = gap(s1, s2)
+    darts_gap = gap(sk, s1)
+    if spread == 0.0:
+        check(darts_gap == 0.0, f"end2end_3d: darts' state {darts_gap} off "
+              "decay_only's, whose two runs are bit-identical")
+    else:
+        check(darts_gap <= 4 * spread, f"end2end_3d: darts' state "
+              f"{darts_gap} off decay_only's, beyond 4x the spread {spread}")
+    out["end2end_3d_modes"] = {
+        "iters": E3D_MODE_ITERS, "decay_only_spread": spread,
+        "darts_gap": darts_gap, "darts_arch_grad_norms":
+        [m["arch_grad_norm"] for m in dk], "launches": launches,
+        "losses": {"decay_only": d1[-1], "darts": dk[-1]}}
+    print(f"[end2end_3d modes] {E3D_MODE_ITERS} iterations: two decay_only "
+          f"runs {spread:.3e} apart, darts {darts_gap:.3e} off decay_only, "
+          "darts hypergradient exactly 0")
+
+    # (c) from a NIfTI folder: int16, scl_slope 2, cropped and padded
+    n = write_nifti_folder()
+    c = _e3d_train(torch, ["--data.synthetic=false",
+                           f"--data.dataroot={NIFTI_DIR}",
+                           "--data.n_train=8", "--data.n_val=2",
+                           "--data.n_test=2", "--engine.valid_step=5",
+                           "--run.name=end2end-3d-nifti"],
+                   E3D_NIFTI_ITERS, "end2end_3d nifti")
+    out["end2end_3d_nifti"] = c
+    print(f"[end2end_3d nifti] {n} volumes of 72x80x60 int16: "
+          f"{E3D_NIFTI_ITERS} iterations, test Dice {c['test_dice']:.4f}, "
+          f"{c['steady_it_per_s']:.3f} it/s")
+
+    # (d) train_pix2pix_3d: 10 steps at full width, then the generation CSV
+    cfg = parse_config(["--data.synthetic=true", "--data.n_train=4",
+                        "--data.n_val=1", "--data.n_test=2",
+                        "--data.batch_size=1", "--model.norm=instance",
+                        "--run.log_every=5", f"--run.save_dir={RUN3D}",
+                        "--run.name=pix2pix-3d"])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model, res = train_pix2pix_3d.train(cfg, train_iters=P2P3D_STEPS,
+                                        crop=64, num_downs=6,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(v) for r in res["log"] for k, v in r.items()),
+          f"pix2pix_3d: losses not finite: {res['log']}")
+    csv = RUN3D / "pix2pix-3d" / "gen_metrics.csv"
+    test = load_volume_splits(cfg, 64)["test"]
+    rows = train_pix2pix_3d.evaluate_generation(model, test, 1, str(csv))
+    check(len(rows) == len(test["A"]) and csv.exists()
+          and all(np.isfinite(v) for r in rows for v in r.values()),
+          f"pix2pix_3d: generation CSV {rows}")
+    out["pix2pix_3d"] = {"steps": P2P3D_STEPS, "wall_s": wall,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "log": res["log"], "csv_rows": rows,
+                         "launches": _launches_zero(kernels, "pix2pix_3d")}
+    print(f"[pix2pix_3d] {P2P3D_STEPS} steps in {wall:.2f} s, CSV rows "
+          f"{rows}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (e) train_unet3d: 20 steps at base 64
+    cfg = parse_config(["--data.synthetic=true", "--data.n_train=4",
+                        "--data.n_val=2", "--data.n_test=2",
+                        "--data.batch_size=1",
+                        f"--engine.valid_step={VALID_STEP}",
+                        f"--run.save_dir={RUN3D}", "--run.name=unet3d"])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    net, res = train_unet3d.train(cfg, train_iters=UNET3D_STEPS, crop=64,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    steady = res["log"][1:] or res["log"]
+    sps = sum(r["steps"] for r in steady) / sum(r["seconds"] for r in steady)
+    check(math.isfinite(res["test_dice"]) and all(
+        math.isfinite(r["loss"]) for r in res["log"]),
+        f"unet3d: {res}")
+    out["unet3d"] = {"steps": UNET3D_STEPS, "steady_steps_per_s": sps,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "test_dice": res["test_dice"],
+                     "launches": _launches_zero(kernels, "unet3d")}
+    print(f"[unet3d] {sps:.2f} steps/s, peak "
+          f"{out['unet3d']['peak_mem_bytes']} bytes")
+    del net
+    torch.cuda.empty_cache()
+
+    # (f) the card against the CPU: the CPU test's 3-iteration case in f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, ref = _e3d_small_card_vs_cpu(torch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    keys = ("loss_netG", "loss_netD", "loss_unet")
+    worst = max(abs(g[k] - r[k]) / abs(r[k])
+                for r, g in zip(ref, got) for k in keys)
+    check(worst <= 1e-4, f"end2end_3d small: card {got} against CPU {ref}")
+    out["end2end_3d_small"] = {"worst_rel_loss_gap": worst}
+    print(f"[end2end_3d small] {E3D_MODE_ITERS} iterations at 32^3 f32, "
+          "each from the CPU engine's state, cuda against cpu: largest "
+          f"relative loss gap {worst:.3e}")
+    return out
+
+
 def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
     ``bench.kernels`` (the histogram, at (4, 256, 256), then the cluster
@@ -1730,6 +2078,14 @@ def main() -> int:
     # test_seg, export_seg), DeepLabV2 and the bilinear U-Net in train_unet
     for label, stats in phase_zoo(torch, ckpt,
                                   trainer_stats["end2end_trainer"]).items():
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        if "launches" in stats:
+            paths[label] = stats["launches"]
+
+    # 7e. GenSeg-3D: end2end_3d (synthetic and NIfTI), its darts mode,
+    # train_pix2pix_3d, train_unet3d, and the small case card against CPU
+    for label, stats in phase_3d(torch,
+                                 trainer_stats["end2end_trainer"]).items():
         print(f"[{label}] {card}: " + json.dumps(stats))
         if "launches" in stats:
             paths[label] = stats["launches"]

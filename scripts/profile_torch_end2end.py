@@ -7,18 +7,26 @@ the GPU.
         [--out build/profile_torch_end2end.json]
 
 Builds the engine of ``--preset`` (``end2end_jsrt``, ``end2end_nas``,
-``end2end_isic`` or ``end2end_isic224``; its hypergradient mode, or
-``--hypergrad``) of ``semantic_segmentation_torch`` at the preset's full
-width (the flagship's: 256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base
-64; ``end2end_isic224``: 224^2, resnet_9blocks, the lite Swin-UNet; bf16
+``end2end_isic``, ``end2end_isic224`` or ``end2end_3d``; its hypergradient
+mode, or ``--hypergrad``) of ``semantic_segmentation_torch`` at the
+preset's full width (the flagship's: 256^2, batch 2, unet_256, ngf = ndf =
+64, U-Net base 64; ``end2end_isic224``: 224^2, resnet_9blocks, the lite
+Swin-UNet; ``end2end_3d``: 64^3 crops, batch 1, the 3D NAS generator with
+6 downs at ngf 64, the 3D PatchGAN at ndf 64, UNet3D at base 64; bf16
 autocast, synthetic data), warms it up, times ``--iters`` engine iterations
 (host clock, ending in a device sync), then traces ``--profile-iters`` more
 with ``torch.profiler`` and reports: device busy and idle share of the
 traced window (union of kernel intervals over first-kernel-start to
 last-kernel-end) and, since tracing slows the host, the idle share of the
 untraced iteration time; kernel launches per iteration, and device time per
-kernel category and for the top kernels. The full report goes to ``--out``; a
-summary to stdout, with the card's name and power limit.
+kernel category and for the top kernels. For ``end2end_3d`` it also times
+the assembly of the ``MixedConv`` kernels (the 8^3 mixture of three pads
+and a weighted sum, cast to bf16, forward and backward) alone with CUDA
+events, layer by layer, and reports its share of the iteration: G runs
+three times an iteration (netG's forward with its backward, netD's and the
+U-Net's without), so the assembly runs three forwards and one backward.
+The full report goes to ``--out``; a summary to stdout, with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -67,11 +75,53 @@ def union_us(intervals):
     return total
 
 
+def mixed_conv_assembly_ms(torch, model, iter_ms: float, reps: int = 10):
+    """Device time of the ``MixedConv`` kernel assembly of G's downs (the
+    mixture of the three embedded kernels, cast to bf16 as autocast casts it
+    for the conv), forward alone and forward + backward, by CUDA events over
+    ``reps`` repetitions; and its share of an iteration of ``iter_ms``
+    (three forwards and one backward an iteration)."""
+    from semantic_segmentation_torch.ops.nas import MixedConv, arch_softmax
+    downs = [m for m in model.G.modules() if isinstance(m, MixedConv)]
+    w = arch_softmax(model.arch["conv"][0])
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def fwd(m):
+        with torch.no_grad():
+            m.mixed_kernel(w).to(torch.bfloat16)
+
+    def fwd_bwd(m):
+        k = m.mixed_kernel(w).to(torch.bfloat16)
+        torch.autograd.grad(k, [getattr(m, f"kernel_{s}")
+                                for s in m.kernel_sizes],
+                            torch.ones_like(k))
+
+    per_layer = [{"weights": sum(getattr(m, f"kernel_{s}").numel()
+                                 for s in m.kernel_sizes),
+                  "fwd_ms": timed(lambda: fwd(m)),
+                  "fwd_bwd_ms": timed(lambda: fwd_bwd(m))} for m in downs]
+    fwd_ms = sum(r["fwd_ms"] for r in per_layer)
+    bwd_ms = sum(r["fwd_bwd_ms"] for r in per_layer) - fwd_ms
+    per_iter = 3 * fwd_ms + bwd_ms
+    return {"per_layer": per_layer, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "ms_per_iter": per_iter, "share_of_iter": per_iter / iter_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="end2end_jsrt",
                     choices=("end2end_jsrt", "end2end_nas", "end2end_isic",
-                             "end2end_isic224"))
+                             "end2end_isic224", "end2end_3d"))
     ap.add_argument("--hypergrad", default=None,
                     choices=("darts", "unroll", "decay_only", "none"),
                     help="default: the preset's")
@@ -101,17 +151,25 @@ def main() -> int:
     argv = ["--data.synthetic=true"]
     if args.hypergrad:
         argv.append(f"--engine.hypergrad={args.hypergrad}")
-    cfg = parse_config(argv, preset=args.preset)
     dev = torch.device("cuda")
-    engine, _, _ = build_engine(cfg, dev)
-    splits = load_splits(cfg)
+    model3d = None
+    if args.preset == "end2end_3d":
+        from semantic_segmentation_torch.train import train_end2end_3d as e3d
+        cfg = parse_config(argv + ["--preset=end2end_3d", "--data.n_train=4",
+                                   "--data.n_val=2", "--data.n_test=0"])
+        engine, model3d = e3d.build_engine(cfg, dev, 6, "linear")
+        splits = e3d.load_volume_splits(cfg, 64)
+    else:
+        cfg = parse_config(argv, preset=args.preset)
+        engine, _, _ = build_engine(cfg, dev)
+        splits = load_splits(cfg)
     train_dev = to_device_split(splits["train"], dev)
     val_dev = to_device_split(splits["val"], dev)
-    n_train = len(splits["train"]["image"])
+    n_train = len(next(iter(splits["train"].values())))
     streams = {n: epoch_index_batches(n_train, cfg.data.batch_size,
                                       seed=cfg.run.seed * 7 + i)
                for i, n in enumerate(PROBLEMS)}
-    val_stream = epoch_index_batches(len(splits["val"]["image"]),
+    val_stream = epoch_index_batches(len(next(iter(splits["val"].values()))),
                                      cfg.data.batch_size,
                                      seed=cfg.run.seed + 99)
 
@@ -160,14 +218,22 @@ def main() -> int:
         by_name[e.name] += dur
         n_by_name[e.name] += 1
     P = args.profile_iters
+    assembly = (None if model3d is None else
+                mixed_conv_assembly_ms(torch, model3d, 1e3 * host_s
+                                       / args.iters))
     report = {
         "card": card, "torch": torch.__version__,
-        "config": f"{args.preset}, hypergrad {cfg.engine.hypergrad}, "
-                  f"{cfg.data.image_size}^2, batch {cfg.data.batch_size}, "
-                  f"{cfg.model.netG}, ngf=ndf={cfg.model.ngf}, "
-                  f"segmenter {cfg.model.seg_model}, "
-                  f"{cfg.engine.fake_postprocess} fakes, bf16 autocast, "
-                  "synthetic",
+        "config": (f"{args.preset}, hypergrad {cfg.engine.hypergrad}, "
+                   "64^3, batch 1, UnetGenerator3D nd 6 linear instance, "
+                   f"ngf=ndf={cfg.model.ngf}, UNet3D base "
+                   f"{cfg.model.base_features}, bf16 autocast, synthetic"
+                   if model3d is not None else
+                   f"{args.preset}, hypergrad {cfg.engine.hypergrad}, "
+                   f"{cfg.data.image_size}^2, batch {cfg.data.batch_size}, "
+                   f"{cfg.model.netG}, ngf=ndf={cfg.model.ngf}, "
+                   f"segmenter {cfg.model.seg_model}, "
+                   f"{cfg.engine.fake_postprocess} fakes, bf16 autocast, "
+                   "synthetic"),
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "timed_iters": args.iters,
         "host_it_per_s": args.iters / host_s,
@@ -194,6 +260,7 @@ def main() -> int:
                      n_by_name[k], "launches_per_iter": n_by_name[k] / P}
             for k in by_name if category(k).startswith("port")},
         "last_losses": losses,
+        "mixed_conv_assembly": assembly,
     }
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(report, indent=1))
@@ -202,7 +269,7 @@ def main() -> int:
         "device_window_ms_per_iter", "device_idle_share",
         "device_idle_share_untraced",
         "kernel_launches_per_iter", "kernel_ms_per_iter_by_category",
-        "port_kernels")}
+        "port_kernels", "mixed_conv_assembly")}
     print(json.dumps(summary, indent=1))
     return 0
 

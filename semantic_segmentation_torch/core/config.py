@@ -4,7 +4,7 @@ The port's own copy of ``semantic_segmentation_tpu/core/config.py``, with
 the same sections, field names and defaults, so one command line means the
 same run on both packages. It holds only the fields and presets the port
 uses, plus ``run.device``: an option of the JAX package that the port does
-not implement yet (the data mesh, other init laws) is refused, not
+not implement yet (the data mesh, wgangp) is refused, not
 ignored.
 
 CLI: ``--section.field=value`` overrides any leaf (parsed with the field's
@@ -46,8 +46,12 @@ class ModelConfig:
     ngf: int = 64
     ndf: int = 64
     n_layers_D: int = 3
-    norm: str = "batch"
+    norm: str = "batch"              # batch | instance | none
     no_dropout: bool = False
+    # init_net's --init_type/--init_gain (models_pix2pix/networks.py:73-122):
+    # normal | xavier | kaiming | orthogonal, applied to G/D at construction
+    init_type: str = "normal"
+    init_gain: float = 0.02
     input_nc: int = 1
     output_nc: int = 1
     classes: int = 1
@@ -145,6 +149,8 @@ class RunConfig:
     profile_dir: str = ""            # torch.profiler Chrome trace dir
                                      # ('' = off)
     device: str = "cuda"             # entry points run here; 'cpu' on request
+    spatial_axis: int = 1            # 3D spatial-parallel mesh size; only
+                                     # 1 (off) is ported
 
 
 @dataclass
@@ -199,6 +205,13 @@ PRESETS: dict[str, dict[str, Any]] = {
                     "engine.detach_fakes": False,
                     "engine.fake_postprocess": "minmax",
                     "run.name": "end2end-JSRT-9-nas"},
+    # GenSeg-3D/train_end2end.sh: hippocampus 98 volumes, 68/10/20, batch 1
+    # (GenSeg-3D/options/base_options.py:47), the 3D pipeline's default
+    # --norm instance (base_options.py:36); the same structural zero as 2D
+    "end2end_3d": {"data.n_train": 68, "data.n_val": 10, "data.n_test": 20,
+                   "data.batch_size": 1, "model.norm": "instance",
+                   "optim.lr": 2e-4, "engine.hypergrad": "decay_only",
+                   "run.name": "end2end-3d"},
 }
 
 
@@ -243,7 +256,17 @@ def parse_config(argv: list[str] | None = None, preset: str | None = None) -> Co
             raise SystemExit(f"unrecognized argument {a!r}; use --a.b=c")
         k, v = a[2:].split("=", 1)
         _set_by_path(cfg, k, v)
+    check_spatial_axis(cfg)
     return cfg
+
+
+def check_spatial_axis(cfg: Config):
+    """Refuse ``run.spatial_axis`` other than 1: the spatial-parallel mesh
+    belongs to the parallel layer, not ported yet."""
+    if cfg.run.spatial_axis != 1:
+        raise NotImplementedError(
+            f"run.spatial_axis={cfg.run.spatial_axis} is not ported yet "
+            "(ROADMAP.md section 1, item 13: the parallel layer)")
 
 
 def resolve_device(name: str | None = None):

@@ -44,7 +44,12 @@ hypergradients draw from ``hyper_generator``, so they do not advance the
 main stream, and a rollback restores ``generator``'s state, so the replay
 draws what ``decay_only``'s single unroll draws. The two finite-difference
 evaluations share their draws and run with cuDNN's deterministic
-algorithms, so that ``g+ - g-`` is exactly 0 when the shift is.
+algorithms, so that ``g+ - g-`` is exactly 0 when the shift is; and a child
+whose ``v`` is exactly 0 (the reference wiring's netG) adds exactly 0, as
+in exact arithmetic: its two evaluations are of one point, and a backward
+with atomic adds (the 3D generator's trilinear upsample on the card) still
+parts them by rounding, which the ``1 / eps = 1e10`` of a zero ``v`` would
+turn into a nonzero hypergradient.
 """
 
 from __future__ import annotations
@@ -256,7 +261,8 @@ class BilevelEngine:
         last_draws = draws[-1] if draws else {}
         for p in children:
             v = {n: next(v_all) for n in weights[p.name]}
-            eps = self.darts_epsilon / (_global_norm(v.values()) + 1e-12)
+            v_norm = _global_norm(v.values())
+            eps = self.darts_epsilon / (v_norm + 1e-12)
             gen_state = (None if self.hyper_generator is None
                          else self.hyper_generator.get_state())
 
@@ -275,8 +281,9 @@ class BilevelEngine:
             with _DeterministicCudnn():
                 g_plus = train_arch_grad(+1.0)
                 g_minus = train_arch_grad(-1.0)
-            hg = {k: hg[k] - p.lr * (g_plus[k] - g_minus[k]) / (2.0 * eps)
-                  for k in hg}
+            hg = {k: hg[k] - torch.where(
+                      v_norm > 0, p.lr * (g_plus[k] - g_minus[k]) / (2.0 * eps),
+                      0.0) for k in hg}
         return hg, outer.detach()
 
     def _unroll_hypergrad(self, batch_stack, val_batch, draws):

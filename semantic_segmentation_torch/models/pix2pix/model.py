@@ -26,7 +26,7 @@ from semantic_segmentation_torch.core.optim import adam_torch
 from semantic_segmentation_torch.models.pix2pix.networks import (define_D,
                                                                  define_G)
 from semantic_segmentation_torch.ops import nas
-from semantic_segmentation_torch.ops.layers import call_module
+from semantic_segmentation_torch.ops.layers import call_module, reinit_
 from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 
 
@@ -44,18 +44,28 @@ class Pix2Pix:
                  use_dropout=True,
                  gan_mode="vanilla", lambda_L1=100.0, lr=2e-4, beta1=0.5,
                  arch_lr=1e-4, amp=None,
-                 device="cpu", generator: torch.Generator | None = None):
+                 device="cpu", generator: torch.Generator | None = None,
+                 norm="batch", init_type="normal", init_gain=0.02):
         self.lr, self.beta1 = lr, beta1
         self.arch_lr = arch_lr
         self.gan_mode, self.lambda_L1 = gan_mode, lambda_L1
         self.amp = amp or contextlib.nullcontext
         # weights are drawn on the CPU generator, then moved
         self.G = define_G(input_nc, output_nc, netG, ngf, use_dropout,
-                          generator).to(device)
+                          generator, norm)
         self.D = define_D(input_nc + output_nc, netD, ndf, n_layers_D,
-                          generator).to(device)
+                          generator, norm)
         self.arch = {k: v.to(device) for k, v in
                      nas.init_arch_params(generator).items()}
+        if init_type != "normal" or init_gain != 0.02:
+            # init_net's non-default laws (networks.py:84-98), a re-draw
+            # after construction as torch's net.apply(init_func) does; a
+            # non-default gain re-draws even under 'normal' (JAX
+            # models/pix2pix/model.py:72-85)
+            reinit_(self.G, init_type, init_gain, generator)
+            reinit_(self.D, init_type, init_gain, generator)
+        self.G.to(device)
+        self.D.to(device)
 
     # Optimizers are made at first use, after any checkpoint is loaded.
     @cached_property

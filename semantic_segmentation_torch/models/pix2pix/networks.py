@@ -13,9 +13,11 @@ port of ``semantic_segmentation_tpu/models/pix2pix/networks.py``:
 
 NCHW. Submodule names are the JAX package's (``down{d}``, ``down_bn{d}``,
 ``up{d}``, ``up_bn{d}``; ``stem``, ``res{i}``; ``conv{n}``, ``bn{n}``,
-``head``) so the weight bridge maps the trees leaf by leaf. Norm is batch
-norm, so convs followed by one carry no bias (``use_bias`` of the JAX
-package is ``norm == 'instance'``).
+``head``) so the weight bridge maps the trees leaf by leaf. ``norm`` is
+``get_norm_layer``'s (``networks.py:23-41``): 'batch' (the default),
+'instance' (no parameters) or 'none'; a conv that a norm follows carries a
+bias only under instance norm (``use_bias = norm == 'instance'``, JAX
+``models/pix2pix/networks.py:51, 76, 149, 196, 228``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from semantic_segmentation_torch.ops.layers import (BatchNorm2d, dropout_half,
+from semantic_segmentation_torch.ops.layers import (dropout_half, norm_layer,
                                                     pix2pix_normal_)
 from semantic_segmentation_torch.ops.nas import MixedConvTranspose, arch_softmax
 
@@ -41,23 +43,27 @@ class UnetGenerator(nn.Module):
     order of networks.py:530-546)."""
 
     def __init__(self, input_nc: int = 1, output_nc: int = 1,
-                 num_downs: int = 8, ngf: int = 64, use_dropout: bool = True):
+                 num_downs: int = 8, ngf: int = 64, use_dropout: bool = True,
+                 norm: str = "batch"):
         super().__init__()
         nd = self.num_downs = num_downs
         self.use_dropout = use_dropout
+        use_bias = norm == "instance"
         inner = [min(ngf * 2 ** d, ngf * 8) for d in range(nd)]
+        self.up_channels = [output_nc] + [ngf * min(2 ** (d - 1), 8)
+                                          for d in range(1, nd)]
         for d in range(nd):
             c_in = input_nc if d == 0 else inner[d - 1]
             self.add_module(f"down{d}", nn.Conv2d(c_in, inner[d], 4, 2, 1,
-                                                  bias=False))
+                                                  bias=use_bias))
             if 0 < d < nd - 1:
-                self.add_module(f"down_bn{d}", BatchNorm2d(inner[d]))
+                self.add_module(f"down_bn{d}", norm_layer(norm, inner[d]))
             up_in = inner[d] * (2 if d < nd - 1 else 1)
-            out_ch = output_nc if d == 0 else ngf * min(2 ** (d - 1), 8)
-            self.add_module(f"up{d}", MixedConvTranspose(up_in, out_ch,
-                                                         bias=d == 0))
+            out_ch = self.up_channels[d]
+            self.add_module(f"up{d}", MixedConvTranspose(
+                up_in, out_ch, bias=d == 0 or use_bias))
             if d > 0:
-                self.add_module(f"up_bn{d}", BatchNorm2d(out_ch))
+                self.add_module(f"up_bn{d}", norm_layer(norm, out_ch))
 
     def forward(self, x, arch_upconv, dropout_masks=None,
                 generator: torch.Generator | None = None):
@@ -73,9 +79,8 @@ class UnetGenerator(nn.Module):
         if not self.use_dropout:
             return {}
         b, _, hh, ww = shape
-        return {d: torch.rand((b, getattr(self, f"up_bn{d}").weight.shape[0],
-                               hh >> d, ww >> d), generator=generator,
-                              device=device) < 0.5
+        return {d: torch.rand((b, self.up_channels[d], hh >> d, ww >> d),
+                              generator=generator, device=device) < 0.5
                 for d in reversed(dropout_depths(self.num_downs))}
 
     def _block(self, h, d, arch_upconv, dropout_masks, generator):
@@ -112,13 +117,15 @@ class ResnetBlock(nn.Module):
     """networks.py:382-439: two reflect-padded 3x3 conv -> BN stages with
     ReLU (and dropout) between them, added to the input."""
 
-    def __init__(self, dim: int, use_dropout: bool = False):
+    def __init__(self, dim: int, use_dropout: bool = False,
+                 norm: str = "batch"):
         super().__init__()
         self.use_dropout = use_dropout
-        self.conv0 = nn.Conv2d(dim, dim, 3, bias=False)
-        self.bn0 = BatchNorm2d(dim)
-        self.conv1 = nn.Conv2d(dim, dim, 3, bias=False)
-        self.bn1 = BatchNorm2d(dim)
+        use_bias = norm == "instance"
+        self.conv0 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.bn0 = norm_layer(norm, dim)
+        self.conv1 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.bn1 = norm_layer(norm, dim)
 
     def forward(self, x, keep=None, generator=None):
         """``keep``: a keep-mask that replaces the train-mode dropout
@@ -135,24 +142,27 @@ class ResnetGenerator(nn.Module):
     generators share one signature)."""
 
     def __init__(self, input_nc: int = 1, output_nc: int = 1, ngf: int = 64,
-                 n_blocks: int = 9, use_dropout: bool = False):
+                 n_blocks: int = 9, use_dropout: bool = False,
+                 norm: str = "batch"):
         super().__init__()
         self.n_blocks = n_blocks
-        self.stem = nn.Conv2d(input_nc, ngf, 7, bias=False)
-        self.stem_bn = BatchNorm2d(ngf)
+        use_bias = norm == "instance"
+        self.stem = nn.Conv2d(input_nc, ngf, 7, bias=use_bias)
+        self.stem_bn = norm_layer(norm, ngf)
         for i in range(2):
             c = ngf * 2 ** i
             self.add_module(f"down{i}", nn.Conv2d(c, 2 * c, 3, 2, 1,
-                                                  bias=False))
-            self.add_module(f"down_bn{i}", BatchNorm2d(2 * c))
+                                                  bias=use_bias))
+            self.add_module(f"down_bn{i}", norm_layer(norm, 2 * c))
         for i in range(n_blocks):
-            self.add_module(f"res{i}", ResnetBlock(ngf * 4, use_dropout))
+            self.add_module(f"res{i}", ResnetBlock(ngf * 4, use_dropout,
+                                                   norm))
         for i in range(2):
             c = ngf * 2 ** (2 - i)
             # torch ConvTranspose2d(k3, s2, p1, output_padding=1): 2n out
             self.add_module(f"up{i}", nn.ConvTranspose2d(
-                c, c // 2, 3, 2, 1, output_padding=1, bias=False))
-            self.add_module(f"up_bn{i}", BatchNorm2d(c // 2))
+                c, c // 2, 3, 2, 1, output_padding=1, bias=use_bias))
+            self.add_module(f"up_bn{i}", norm_layer(norm, c // 2))
         self.head = nn.Conv2d(ngf, output_nc, 7, bias=True)
 
     def draw_dropout(self, shape, generator=None, device=None) -> dict:
@@ -187,21 +197,23 @@ class ResnetGenerator(nn.Module):
 class NLayerDiscriminator(nn.Module):
     """70x70 PatchGAN (networks.py:620-665): NCHW logit map."""
 
-    def __init__(self, input_nc: int = 2, ndf: int = 64, n_layers: int = 3):
+    def __init__(self, input_nc: int = 2, ndf: int = 64, n_layers: int = 3,
+                 norm: str = "batch"):
         super().__init__()
         self.n_layers = n_layers
+        use_bias = norm == "instance"
         self.conv0 = nn.Conv2d(input_nc, ndf, 4, 2, 1, bias=True)
         nf = ndf
         for n in range(1, n_layers):
             nf_out = ndf * min(2 ** n, 8)
             self.add_module(f"conv{n}", nn.Conv2d(nf, nf_out, 4, 2, 1,
-                                                  bias=False))
-            self.add_module(f"bn{n}", BatchNorm2d(nf_out))
+                                                  bias=use_bias))
+            self.add_module(f"bn{n}", norm_layer(norm, nf_out))
             nf = nf_out
         nf_out = ndf * min(2 ** n_layers, 8)
         self.add_module(f"conv{n_layers}", nn.Conv2d(nf, nf_out, 4, 1, 1,
-                                                     bias=False))
-        self.add_module(f"bn{n_layers}", BatchNorm2d(nf_out))
+                                                     bias=use_bias))
+        self.add_module(f"bn{n_layers}", norm_layer(norm, nf_out))
         self.head = nn.Conv2d(nf_out, 1, 4, 1, 1, bias=True)
 
     def forward(self, x):
@@ -215,12 +227,14 @@ class NLayerDiscriminator(nn.Module):
 class PixelDiscriminator(nn.Module):
     """1x1 PatchGAN (networks.py:668-697): a per-pixel NCHW logit map."""
 
-    def __init__(self, input_nc: int = 2, ndf: int = 64):
+    def __init__(self, input_nc: int = 2, ndf: int = 64,
+                 norm: str = "batch"):
         super().__init__()
+        use_bias = norm == "instance"
         self.conv0 = nn.Conv2d(input_nc, ndf, 1, bias=True)
-        self.conv1 = nn.Conv2d(ndf, 2 * ndf, 1, bias=False)
-        self.bn1 = BatchNorm2d(2 * ndf)
-        self.head = nn.Conv2d(2 * ndf, 1, 1, bias=False)
+        self.conv1 = nn.Conv2d(ndf, 2 * ndf, 1, bias=use_bias)
+        self.bn1 = norm_layer(norm, 2 * ndf)
+        self.head = nn.Conv2d(2 * ndf, 1, 1, bias=use_bias)
 
     def forward(self, x):
         h = F.leaky_relu(self.conv0(x), 0.2)
@@ -233,17 +247,17 @@ _NUM_DOWNS = {256: 8, 128: 7, 64: 6, 32: 5}
 
 def define_G(input_nc: int = 1, output_nc: int = 1, netG: str = "unet_256",
              ngf: int = 64, use_dropout: bool = True,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, norm: str = "batch"):
     """Generator factory (networks.py:125-165): unet_{256,128,64,32} and
     resnet_{9,6}blocks, 'normal' init at gain 0.02."""
     if netG.startswith("unet_"):
         net = UnetGenerator(input_nc, output_nc,
                             _NUM_DOWNS[int(netG.split("_")[1])], ngf,
-                            use_dropout)
+                            use_dropout, norm)
     elif netG in ("resnet_9blocks", "resnet_6blocks"):
         net = ResnetGenerator(input_nc, output_nc, ngf,
                               9 if netG == "resnet_9blocks" else 6,
-                              use_dropout)
+                              use_dropout, norm)
     else:
         raise NotImplementedError(f"generator {netG!r} is not recognized")
     pix2pix_normal_(net, 0.02, generator)
@@ -251,14 +265,15 @@ def define_G(input_nc: int = 1, output_nc: int = 1, netG: str = "unet_256",
 
 
 def define_D(input_nc: int = 2, netD: str = "basic", ndf: int = 64,
-             n_layers_D: int = 3, generator: torch.Generator | None = None):
+             n_layers_D: int = 3, generator: torch.Generator | None = None,
+             norm: str = "batch"):
     """Discriminator factory (networks.py:168-209): 'basic' (3 layers),
     'n_layers' (``n_layers_D``) and 'pixel'."""
     if netD in ("basic", "n_layers"):
         net = NLayerDiscriminator(input_nc, ndf,
-                                  3 if netD == "basic" else n_layers_D)
+                                  3 if netD == "basic" else n_layers_D, norm)
     elif netD == "pixel":
-        net = PixelDiscriminator(input_nc, ndf)
+        net = PixelDiscriminator(input_nc, ndf, norm)
     else:
         raise NotImplementedError(f"discriminator {netD!r} is not "
                                   "recognized")

@@ -1,12 +1,16 @@
 """Layers with the JAX package's numerics — the counterpart of
 ``semantic_segmentation_tpu/ops/flax_layers.py``.
 
-- ``BatchNorm2d``: flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``. In
-  training it normalizes with the biased batch variance (as torch does) but
-  also folds the BIASED variance into ``running_var``, where
-  ``torch.nn.BatchNorm2d`` folds the unbiased one. At the generator's inner
-  layers (2x2 maps at batch 2) the two differ by 8/7, which moves every
-  eval-mode output.
+- ``BatchNorm2d``: flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on
+  NC... tensors of any rank (NCHW, NCDHW). In training it normalizes with
+  the biased batch variance (as torch does) but also folds the BIASED
+  variance into ``running_var``, where ``torch.nn.BatchNorm2d`` folds the
+  unbiased one. At the generator's inner layers (2x2 maps at batch 2) the
+  two differ by 8/7, which moves every eval-mode output.
+- ``InstanceNorm``: flax's ``nn.InstanceNorm(use_scale=False,
+  use_bias=False, epsilon=1e-5)``, torch's ``InstanceNorm{2,3}d(affine=
+  False)``: per-sample, per-channel statistics, no parameters.
+- ``norm_layer``: the ``get_norm_layer`` choice (batch, instance, none).
 - ``call_module``: a forward on scratch BN buffers and, optionally, on
   parameters that are not the module's own.
 - ``pad_to_match``: the U-Net skip-concat pad (``unet/unet_parts.py:59-63``).
@@ -19,7 +23,9 @@
 - init laws: pix2pix ``init_type='normal'`` (N(0, 0.02), BN scale
   N(1, 0.02), zero biases), torch's kaiming-uniform with the fan-in the
   JAX package uses (C_in * k * k, also for transposed convs), flax's
-  default lecun-normal and DeepLabV2's He-normal on the fan-out.
+  default lecun-normal and DeepLabV2's He-normal on the fan-out; and
+  ``reinit_``, the non-default ``init_type``/``init_gain`` laws of
+  ``init_weights`` (normal, xavier, kaiming, orthogonal).
 
 Max-pool is ``F.max_pool2d``: the JAX reshape pool is a TPU lowering of the
 same function (first-argmax gradient, as torch's).
@@ -41,8 +47,22 @@ from torch.utils.checkpoint import checkpoint
 _recompute = threading.local()
 
 
+def _at_least_f32(x):
+    """``x`` promoted to float32 at least (float64 stays), as flax takes
+    normalization statistics."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _channel_view(t, ndim: int):
+    """A per-channel (C,) tensor shaped to broadcast over an NC... tensor
+    of rank ``ndim``."""
+    return t.reshape((-1,) + (1,) * (ndim - 2))
+
+
 class BatchNorm2d(nn.Module):
-    """flax ``BatchNorm`` semantics on NCHW tensors, statistics in float32."""
+    """flax ``BatchNorm`` semantics on NC... tensors (NCHW, NCDHW): the
+    statistics reduce over every axis but the channel axis, in float32 (in
+    float64 for a float64 input)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -54,17 +74,19 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        xs = _at_least_f32(x)
         if not self.training:
-            return F.batch_norm(x.float(), self.running_mean, self.running_var,
+            return F.batch_norm(xs, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
-        x32 = x.float()
-        var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+        dims = (0,) + tuple(range(2, x.dim()))
+        var, mean = torch.var_mean(xs, dim=dims, unbiased=False)
         if not getattr(_recompute, "on", False):
             self._fold(mean, var)
         scale = self.weight * torch.rsqrt(var + self.eps)
-        y = (x32 - mean[:, None, None]) * scale[:, None, None] \
-            + self.bias[:, None, None]
+        y = (xs - _channel_view(mean, x.dim())) \
+            * _channel_view(scale, x.dim()) + _channel_view(self.bias,
+                                                            x.dim())
         return y.to(x.dtype)
 
     @torch.no_grad()
@@ -72,6 +94,37 @@ class BatchNorm2d(nn.Module):
         m = self.momentum
         self.running_mean.mul_(m).add_((1.0 - m) * mean)
         self.running_var.mul_(m).add_((1.0 - m) * var)
+
+
+class InstanceNorm(nn.Module):
+    """flax ``nn.InstanceNorm(use_scale=False, use_bias=False,
+    epsilon=1e-5)`` on NC... tensors: each sample's channel normalized over
+    its spatial axes, no parameters, no running statistics. As flax does,
+    the statistics are taken in float32 (float64 stays float64) with the
+    variance as E[x^2] - E[x]^2, clipped at 0; the output has the input's
+    dtype."""
+
+    eps = 1e-5
+
+    def forward(self, x):
+        xs = _at_least_f32(x)
+        dims = tuple(range(2, x.dim()))
+        mean = xs.mean(dim=dims, keepdim=True)
+        mean2 = (xs * xs).mean(dim=dims, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        return ((xs - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+def norm_layer(norm: str, num_features: int) -> nn.Module:
+    """``get_norm_layer`` (``models_pix2pix/networks.py:23-41``): 'batch'
+    (affine, running statistics), 'instance' (no parameters) or 'none'."""
+    if norm == "batch":
+        return BatchNorm2d(num_features)
+    if norm == "instance":
+        return InstanceNorm()
+    if norm == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"normalization layer {norm!r} is not found")
 
 
 @contextlib.contextmanager
@@ -125,23 +178,97 @@ def pad_to_match(x_small, target_hw):
 
 
 def pix2pix_normal_(module: nn.Module, gain: float = 0.02,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    draw_bn_scale: bool = True):
     """``init_weights`` 'normal' (``models_pix2pix/networks.py:84-101``):
-    conv weights N(0, gain), biases 0, our BatchNorm's scale N(1, gain)."""
+    conv weights N(0, gain), biases 0, our BatchNorm's scale N(1, gain)
+    (1 with ``draw_bn_scale`` False: the JAX package's 3D nets keep flax's
+    default BN init)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             owner = module.get_submodule(name.rpartition(".")[0]) \
                 if "." in name else module
             leaf = name.rpartition(".")[2]
             if isinstance(owner, BatchNorm2d):
-                if leaf == "weight":
+                if leaf == "weight" and draw_bn_scale:
                     p.normal_(1.0, gain, generator=generator)
+                elif leaf == "weight":
+                    p.fill_(1.0)
                 else:
                     p.zero_()
             elif leaf.startswith("bias"):
                 p.zero_()
             else:
                 p.normal_(0.0, gain, generator=generator)
+
+
+def _semi_orthogonal(rows: int, cols: int, gain: float,
+                     generator: torch.Generator | None):
+    """torch ``init.orthogonal_``'s law on a (rows, cols) matrix: the QR of
+    a Gaussian (transposed when rows < cols, so the short side is
+    orthonormal), its columns' signs set by diag(R), scaled by ``gain``."""
+    tall = rows >= cols
+    a = torch.randn((rows, cols) if tall else (cols, rows),
+                    generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return gain * (q if tall else q.T)
+
+
+def reinit_(module: nn.Module, init_type: str = "normal",
+            init_gain: float = 0.02,
+            generator: torch.Generator | None = None) -> nn.Module:
+    """``init_weights`` (``models_pix2pix/networks.py:73-104``), the laws of
+    ``flax_layers.reinit_params`` on the torch weight layout, drawn from
+    ``generator``. Every conv or linear weight (a parameter named
+    ``weight`` or ``kernel_*`` of rank 2 or more, not a norm's):
+
+    - normal: N(0, gain);
+    - xavier: ``xavier_normal_(gain)``, N(0, gain * sqrt(2 / (rf*I +
+      rf*O)));
+    - kaiming: ``kaiming_normal_(a=0, mode='fan_in')``, N(0, sqrt(2 /
+      fan)) with torch's fan from dimension 1 of the weight: rf * I for a
+      conv (O, I, k...), rf * O for a transposed conv (I, O, k...);
+    - orthogonal: ``orthogonal_(gain)`` on the (dim 0, rest) flattening,
+      rows = O for a conv, rows = I for a transposed conv.
+
+    Biases go to 0; a ``BatchNorm2d`` scale is drawn from N(1, gain) and
+    its bias zeroed; ``InstanceNorm`` has nothing to draw."""
+    if init_type not in ("normal", "xavier", "kaiming", "orthogonal"):
+        raise NotImplementedError(f"initialization method {init_type!r} is "
+                                  "not implemented")
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = module.get_submodule(owner_name) if owner_name \
+                else module
+            if isinstance(owner, BatchNorm2d):
+                if leaf == "weight":
+                    p.copy_(1.0 + init_gain * torch.randn(
+                        p.shape, generator=generator))
+                else:
+                    p.zero_()
+            elif leaf.startswith("bias"):
+                p.zero_()
+            elif p.dim() >= 2:
+                p.copy_(_init_law(p.shape, init_type, init_gain, generator))
+    return module
+
+
+def _init_law(shape, init_type: str, gain: float, generator):
+    """One weight of torch layout ``shape`` drawn from ``init_type``'s law
+    (``reinit_``)."""
+    rf = math.prod(shape[2:])
+    if init_type == "normal":
+        return gain * torch.randn(shape, generator=generator)
+    if init_type == "xavier":
+        std = gain * math.sqrt(2.0 / (rf * shape[1] + rf * shape[0]))
+        return std * torch.randn(shape, generator=generator)
+    if init_type == "kaiming":
+        return math.sqrt(2.0 / (rf * shape[1])) * torch.randn(
+            shape, generator=generator)
+    return _semi_orthogonal(shape[0], rf * shape[1], gain,
+                            generator).reshape(shape)
 
 
 def kaiming_uniform_(weight, fan_in: int,

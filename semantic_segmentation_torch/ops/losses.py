@@ -6,8 +6,11 @@ multi-class mean the evaluation protocol scores); Jaccard
 ``running_files/train_end2end_isic.py:40-57`` (the ISIC family's metric and
 training loss); BCE-with-logits and cross-entropy criteria
 ``running_files/train_end2end_jsrt.py:136``; GAN
-objectives ``models_pix2pix/networks.py:215-318``. Reductions run in
-float32 whatever the autocast dtype.
+objectives ``models_pix2pix/networks.py:215-318``; the GenSeg-3D criterion
+(weighted cross entropy and the argmax Dice, ``GenSeg-3D/train_end2end.py:
+40-57, 139``) and the 3D generator's sum-reduced L1/MSE with the
+``zero_division`` guard (``GenSeg-3D/util/util.py:25-26``). Reductions run
+in float32 whatever the autocast dtype.
 """
 
 from __future__ import annotations
@@ -81,6 +84,64 @@ def softmax_cross_entropy(logits, labels, dim: int = 1):
     return -torch.mean(logp.gather(dim, labels.long().unsqueeze(dim)))
 
 
+def softmax_cross_entropy_weighted(logits, labels, class_weights,
+                                   dim: int = 1):
+    """torch ``CrossEntropyLoss(weight=w)``: sum(w[y] * nll) / sum(w[y]),
+    the classes along ``dim`` — the GenSeg-3D criterion with
+    ``BCE_WEIGHTS = (0.004, 0.996)`` (``GenSeg-3D/UNet3D/config.py:35``)."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits.float(), dim=dim)
+    nll = -logp.gather(dim, labels.unsqueeze(dim)).squeeze(dim)
+    w = torch.as_tensor(class_weights, dtype=torch.float32,
+                        device=logits.device)[labels]
+    return torch.sum(w * nll) / torch.sum(w)
+
+
+@torch.no_grad()
+def argmax_dice_score(logits, target, dim: int = 1, epsilon: float = 1e-6):
+    """GenSeg-3D's ``dice_score`` (``train_end2end.py:40-54``): the global
+    Dice of the argmax prediction. A constant with respect to the logits
+    (the reference calls ``.item()`` on it): computed detached."""
+    pred = torch.argmax(logits.float(), dim=dim).float()
+    target = target.float()
+    inter = torch.sum(pred * target)
+    union = torch.sum(pred) + torch.sum(target)
+    return (2.0 * inter + epsilon) / (union + epsilon)
+
+
+def argmax_dice_loss(logits, target, smooth: float = 1.0, dim: int = 1):
+    """``train_end2end.py:56-57``: (1 - dice_score) * smooth, a constant
+    with respect to the parameters, as in the reference."""
+    return (1.0 - argmax_dice_score(logits, target, dim)) * smooth
+
+
+def zero_division(n, d):
+    """``GenSeg-3D/util/util.py:25-26``: n / d if d else 0. The division
+    runs on a safe denominator, so neither the value nor the gradient of
+    the branch not taken can be NaN."""
+    d = torch.as_tensor(d, dtype=torch.float32, device=n.device)
+    nonzero = d != 0
+    return torch.where(nonzero, n / torch.where(nonzero, d,
+                                                torch.ones_like(d)),
+                       torch.zeros_like(n))
+
+
+def l1_loss_sum(pred, target):
+    return torch.sum(torch.abs(pred.float() - target.float()))
+
+
+def mse_loss_sum(pred, target):
+    return torch.sum(torch.square(pred.float() - target.float()))
+
+
+def seg_criterion(logits, targets, n_classes: int):
+    """BCE-with-logits for one class, cross entropy (classes along dim 1)
+    for several (``running_files/train_end2end_jsrt.py:136``)."""
+    if n_classes > 1:
+        return softmax_cross_entropy(logits, targets, dim=1)
+    return bce_with_logits(logits, targets)
+
+
 def gan_loss(pred, target_is_real: bool, gan_mode: str = "vanilla"):
     """GANLoss: vanilla (BCE on logits) or lsgan (MSE)."""
     pred = pred.float()
@@ -94,3 +155,7 @@ def gan_loss(pred, target_is_real: bool, gan_mode: str = "vanilla"):
 
 def l1_loss(pred, target):
     return torch.mean(torch.abs(pred.float() - target.float()))
+
+
+def mse_loss(pred, target):
+    return torch.mean(torch.square(pred.float() - target.float()))

@@ -39,17 +39,18 @@ DISCRIMINATOR_FILE = "pix2pix_discriminator.pt"
 def build_pix2pix(cfg: Config, device, generator: torch.Generator | None =
                   None) -> Pix2Pix:
     """The Pix2Pix of ``cfg`` on ``device``, its weights drawn from
-    ``generator`` (G, then D, then the arch tables)."""
+    ``generator`` (G, then D, then the arch tables, then the
+    ``model.init_type`` re-draw of G and D)."""
     m = cfg.model
-    if m.norm != "batch":
-        raise NotImplementedError(f"norm={m.norm!r} is not ported yet")
     device = torch.device(device)
     return Pix2Pix(m.input_nc, m.output_nc, m.ngf, m.ndf, m.netG, m.netD,
-                   m.n_layers_D, use_dropout=not m.no_dropout, gan_mode=cfg.optim.gan_mode,
+                   m.n_layers_D, use_dropout=not m.no_dropout,
+                   gan_mode=cfg.optim.gan_mode,
                    lambda_L1=cfg.optim.lambda_L1, lr=cfg.optim.lr,
                    beta1=cfg.optim.beta1, arch_lr=cfg.optim.arch_lr,
                    amp=autocast_for(cfg, device), device=device,
-                   generator=generator)
+                   generator=generator, norm=m.norm, init_type=m.init_type,
+                   init_gain=m.init_gain)
 
 
 def train(cfg: Config, train_iters: int | None = None, device=None):

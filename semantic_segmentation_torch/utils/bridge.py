@@ -5,12 +5,14 @@ The port's modules use the JAX package's submodule names, except flax's
 auto-names inside the U-Net's Down/Up blocks (``RENAME``). Leaves convert by
 the kind of port module that owns them:
 
-- ``nn.Conv2d`` kernel: HWIO <-> OIHW;
-- transposed convs (``nn.ConvTranspose2d``, ``MixedConvTranspose``): the JAX
-  package stores the forward-equivalent kernel, spatially flipped, in HWIO
-  (``ops/conv.py:5-10``); torch stores (C_in, C_out, k, k) unflipped;
-- ``BatchNorm2d``: scale/bias <-> weight/bias, stats mean/var <->
-  running_mean/running_var;
+- conv kernels (``nn.Conv2d``/``nn.Conv3d``, ``MixedConv``'s forward
+  ``kernel_*``): HWIO <-> OIHW, DHWIO <-> OIDHW;
+- transposed convs (``nn.ConvTranspose2d``/``3d``, ``MixedConvTranspose``):
+  the JAX package stores the forward-equivalent kernel, spatially flipped
+  on every spatial axis, in (H)WIO / DHWIO (``ops/conv.py:5-10``); torch
+  stores (C_in, C_out, k, ...) unflipped;
+- ``BatchNorm2d`` (any rank): scale/bias <-> weight/bias, stats mean/var
+  <-> running_mean/running_var; ``InstanceNorm`` has no leaves;
 - ``nn.Linear`` (flax ``Dense``) kernel: (in, out) <-> (out, in);
 - ``nn.LayerNorm``: scale/bias <-> weight/bias;
 - any other leaf (the Swin's ``rel_pos_bias`` table) as it is.
@@ -29,7 +31,8 @@ from semantic_segmentation_torch.ops.nas import MixedConvTranspose
 
 RENAME = {"DoubleConv_0": "conv", "TorchConvTranspose_0": "up"}
 _UNRENAME = {v: k for k, v in RENAME.items()}
-_TRANSPOSED = (nn.ConvTranspose2d, MixedConvTranspose)
+_TRANSPOSED = (nn.ConvTranspose2d, nn.ConvTranspose3d, MixedConvTranspose)
+_KERNEL_RANKS = (4, 5)
 
 
 def _flatten(tree, prefix=()):
@@ -45,16 +48,27 @@ def _owner(module: nn.Module, key: str):
     return module.get_submodule(path) if path else module
 
 
+def _flip_spatial(w, nsp: int):
+    """``w`` reversed on its trailing ``nsp`` (spatial) axes."""
+    return w[(Ellipsis,) + (slice(None, None, -1),) * nsp]
+
+
 def _kernel_to_torch(k, transposed: bool):
+    nsp = k.ndim - 2
+    spatial = tuple(range(nsp))
     if transposed:
-        return np.ascontiguousarray(k.transpose(2, 3, 0, 1)[..., ::-1, ::-1])
-    return np.ascontiguousarray(k.transpose(3, 2, 0, 1))
+        return np.ascontiguousarray(_flip_spatial(
+            k.transpose((nsp, nsp + 1) + spatial), nsp))
+    return np.ascontiguousarray(k.transpose((nsp + 1, nsp) + spatial))
 
 
 def _kernel_to_flax(w, transposed: bool):
+    nsp = w.ndim - 2
+    spatial = tuple(range(2, 2 + nsp))
     if transposed:
-        return np.ascontiguousarray(w[..., ::-1, ::-1].transpose(2, 3, 0, 1))
-    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+        return np.ascontiguousarray(
+            _flip_spatial(w, nsp).transpose(spatial + (0, 1)))
+    return np.ascontiguousarray(w.transpose(spatial + (1, 0)))
 
 
 def flax_to_state_dict(module: nn.Module, params: dict,
@@ -69,7 +83,7 @@ def flax_to_state_dict(module: nn.Module, params: dict,
             key = ".".join([RENAME.get(p, p) for p in path[:-1]]
                            + [leaf_names.get(path[-1], path[-1])])
             arr = np.asarray(leaf, np.float32)
-            if arr.ndim == 4:
+            if arr.ndim in _KERNEL_RANKS:
                 arr = _kernel_to_torch(
                     arr, isinstance(_owner(module, key), _TRANSPOSED))
             elif arr.ndim == 2 and path[-1] == "kernel":
@@ -96,7 +110,7 @@ def state_dict_to_flax(module: nn.Module, state_dict: dict):
             leaf = "kernel"
             if isinstance(owner, nn.Linear):
                 arr = np.ascontiguousarray(arr.T)
-        if arr.ndim == 4:
+        if arr.ndim in _KERNEL_RANKS:
             arr = _kernel_to_flax(arr, isinstance(owner, _TRANSPOSED))
         node = tree
         for m in mods:

@@ -5,7 +5,8 @@ answer, and the rule that no kernel sits on a gradient path.
   ``0.5 (w - a)^2`` stepped by SGD(eta), outer ``0.5 (w1 - t)^2``; both
   modes give the closed form ``(w1 - t) eta`` (1e-6, relative); roll-back
   replays under the new arch; without it the unrolled weights stay; K = 2
-  matches the chain rule by hand.
+  matches the chain rule by hand; a ``darts`` child with a zero ``v`` adds
+  exactly 0 even when its two evaluations differ.
 - The conv toy of ``tests/test_program_parity.py:146``, where the direct
   term and the finite difference are both non-zero: three ``darts``
   iterations with K = 2 and roll-back, and three ``unroll`` ones, against
@@ -115,6 +116,37 @@ def test_toy_unroll_k2_matches_manual():
     w2 = W0 * (1 - ETA) ** 2
     expected = -ALR * (w2 - TARGET) * (1 - (1 - ETA) ** 2)
     np.testing.assert_allclose(eng.arch["a"].item(), expected, rtol=1e-6)
+
+
+def test_darts_child_with_zero_v_adds_exactly_zero():
+    """A ``darts`` child whose ``v`` is exactly 0 adds exactly 0 to the
+    hypergradient, even when its two evaluations at that one point differ
+    (as a backward with atomic adds makes them on the card): here every
+    evaluation of the child's loss is scaled by 1 + 1e-9 x its call count,
+    and the outer loss reads the child's weights with a zero gradient."""
+    mod = _Weights(w=torch.tensor([W0], dtype=torch.float64))
+    arch = {"a": torch.zeros(1, dtype=torch.float64)}
+    calls = []
+
+    def loss_p(batch, draws, params=None, generator=None):
+        w = _pick(params, "p", dict(mod.named_parameters()))["w"]
+        a = _pick(params, "arch", arch)["a"]
+        calls.append(1)
+        return 0.5 * torch.sum((w - a) ** 2) * (1.0 + 1e-9 * len(calls))
+
+    def outer_loss(params, val_batch):
+        w = _pick(params, "p", dict(mod.named_parameters()))["w"]
+        return torch.sum(w * 0.0)
+
+    prob = InnerProblem("p", loss_p, mod, torch.optim.SGD(mod.parameters(),
+                                                          lr=ETA), ETA)
+    eng = BilevelEngine([prob], arch, torch.optim.SGD(list(arch.values()),
+                                                      lr=ALR),
+                        outer_loss, hypergrad="darts", arch_children=("p",))
+    metrics = eng.engine_step(_batches(), None)
+    assert len(calls) == 4     # the unroll, two evaluations, the replay
+    assert metrics["arch_grad_norm"].item() == 0.0
+    assert eng.arch["a"].item() == 0.0
 
 
 # -- the conv toy against the JAX engine ---------------------------------

@@ -116,8 +116,8 @@ def test_hypergrad_none_leaves_arch(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--run.data_axis=data"],
-                                  ["--model.init_type=xavier"],
-                                  ["--preset=end2end_3d"]])
+                                  ["--model.tapmm_down=true"],
+                                  ["--preset=end2end_bbdm"]])
 def test_unported_options_are_refused(argv):
     # an option the port does not implement yet fails loudly instead of
     # being ignored
