@@ -141,6 +141,36 @@ Phases, each of which stops the script with a nonzero exit on failure:
    and peak); (f) the CPU test's 3-iteration engine case (32^3, nd 3,
    ngf = ndf = 4, base 4, f32) on the card against the CPU, losses within
    1e-4 relative. No port kernel launches on any 3D path (each counted);
+7f. pixel-space BBDM at full width (the ADM denoiser at model_channels
+   128, mult (1, 4, 8), 2 res blocks, its 21 NAS cells: 1,211,895,425
+   parameters; 256^2, bf16 autocast, T = 1000 with the 200-step
+   sampler): (a) ``train_bbdm`` of the ``bbdm`` preset at batch 8 for 10
+   steps, validation every 5 (finite losses, steady steps/s, the peak;
+   the final latest checkpoint, the whole trainer state, is written to
+   disk, and the top-k checkpoints and the two weight files are
+   serialized whole but streamed into a byte counter, their bytes and
+   seconds printed: the H100 host this script was measured on caps a
+   run's disk writes at 45 GiB, and one such run writes 87 GB); (b)
+   ``run.sample_only``'s ``sample_eval``, which builds a fresh model and
+   restores (a)'s latest checkpoint from disk (its metric record carries
+   (a)'s last step), over two test conditions, two samples each (the
+   restore's seconds, seconds per 200-step sampling batch, the grid,
+   samples in [0, 1], the diversity);
+   (c) ``train_end2end_bbdm`` of the ``end2end_bbdm`` preset
+   (``loss_lambda`` 0, ``decay_only``, U-Net base 64) for 10 iterations,
+   validation every 5 (it/s, the peak, a panel per validation, no kernel
+   launched); (d) two engine iterations with ``--optim.loss_lambda=1.0``
+   (the fake branch: the warp, then a 200-step sampling at batch 2 inside
+   the U-Net's step; one warp launch an iteration) and one with the
+   photometric chain (one warp and one equalize); (e) one ``darts``
+   iteration, its hypergradient exactly 0; (f) a small denoiser (model
+   channels 16, 32^2, f32) on the card against the CPU from the same
+   weights: the forward within 1e-5 and a 10-step sampling run within 1e-4
+   of the largest magnitude. The phase runs in a fresh child process
+   (``--bbdm-child``) that first asks for cuDNN's heuristic mode B as the
+   BBDM entry points do (``prefer_cudnn_heuristic_mode_b``: PyTorch reads
+   it when a process plans its first conv, and the earlier phases ran
+   convs); it prints its wall time;
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -171,6 +201,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -183,6 +214,12 @@ SAVE_DIR = ROOT / "build" / "chip_smoke_run"
 # writes its kernel records and launch counts to TIMING_FILE
 TIMING_ARG = "--timing-child"
 TIMING_FILE = ROOT / "build" / "chip_smoke_timing.json"
+# phase 7f runs in a child process too: ``python3 chip_smoke.py
+# --bbdm-child`` writes its stats to BBDM_FILE. Like the BBDM entry points
+# it asks for cuDNN's heuristic mode B before its first conv, which only a
+# fresh process can (this one's earlier phases ran convs)
+BBDM_ARG = "--bbdm-child"
+BBDM_FILE = ROOT / "build" / "chip_smoke_bbdm.json"
 
 
 def fail(msg: str):
@@ -1885,6 +1922,414 @@ def phase_3d(torch, flagship: dict) -> dict:
     return out
 
 
+class _ByteCounter:
+    """A write-only stream that counts the bytes written into it."""
+
+    def __init__(self):
+        self.n = 0
+
+    def write(self, b) -> int:
+        self.n += len(b)
+        return len(b)
+
+    def flush(self):
+        pass
+
+
+class CountedSaves:
+    """Within it ``torch.save`` writes the files under ``keep`` to disk and
+    streams every other one into a byte counter, leaving an empty file in
+    its place: the serialization runs whole (every tensor copied off the
+    card), and each file's bytes, seconds and whether it was written are
+    recorded in ``files``. The H100 host this script was measured on caps
+    a run's disk writes at 45 GiB, and one full-width ``train_bbdm`` run
+    with two validations writes 87 GB (a trainer checkpoint is 19.4 GB)."""
+
+    def __init__(self, torch, keep: Path):
+        self.torch, self.keep, self.files = torch, keep, []
+
+    def __enter__(self):
+        real = self.real = self.torch.save
+
+        def save(obj, f, *args, **kwargs):
+            t0 = time.perf_counter()
+            if Path(f).is_relative_to(self.keep):
+                real(obj, f, *args, **kwargs)
+                n, written = Path(f).stat().st_size, True
+            else:
+                sink = _ByteCounter()
+                real(obj, sink, *args, **kwargs)
+                Path(f).touch()
+                n, written = sink.n, False
+            self.files.append({"file": str(f), "bytes": n,
+                               "seconds": time.perf_counter() - t0,
+                               "written": written})
+        self.torch.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.save = self.real
+
+
+# 7f. pixel-space BBDM at full width: the ADM denoiser (model_channels 128,
+# mult (1, 4, 8), 2 res blocks, 21 NAS cells, 1,211,895,425 parameters),
+# 256^2, bf16 autocast, T = 1000 with the 200-step sampler
+RUNBBDM = ROOT / "build" / "chip_smoke_bbdm"
+BBDM_DEV = "cuda"
+BBDM_STEPS, BBDM_VALID, E2EB_ITERS, E2EB_FAKE_ITERS = 10, 5, 10, 2
+BBDM_CKPT = RUNBBDM / "bbdm" / "ckpt"  # (a)'s latest: the one file written
+BBDM_ARGV = ["--preset=bbdm", "--data.synthetic=true", "--data.n_train=16",
+             "--data.n_val=8", "--data.n_test=2",
+             f"--engine.valid_step={BBDM_VALID}", f"--run.save_dir={RUNBBDM}"]
+E2EB_ARGV = ["--preset=end2end_bbdm", "--data.synthetic=true",
+             "--data.n_train=4", "--data.n_val=2", "--data.n_test=2",
+             f"--run.save_dir={RUNBBDM}"]
+
+
+def _check_full_bbdm(net, compute_dtype: str, label: str):
+    """The full-width denoiser in bf16."""
+    check((sum(p.numel() for p in net.parameters()), net.n_cells,
+           compute_dtype) == (1_211_895_425, 21, "bfloat16"),
+          f"{label}: not the full-width BBDM configuration")
+
+
+def _bbdm_train(torch, saves: CountedSaves) -> dict:
+    """(a) ``train_bbdm --preset=bbdm`` at batch 8, 10 steps, validation
+    every 5: steady steps/s, peak, finite losses, the latest checkpoint
+    (written to disk), the top-k checkpoints and the weight files
+    (streamed into ``saves``' counter)."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_bbdm
+    cfg = parse_config(BBDM_ARGV)
+    check(cfg.data.batch_size == 8, "bbdm: the preset's batch is 8")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = train_bbdm.build_model(cfg, BBDM_DEV)
+    _check_full_bbdm(model.unet, cfg.model.compute_dtype, "bbdm")
+    check((model.sched.num_timesteps, len(model.sched.steps)) == (1000, 200),
+          "bbdm: not the template's schedule")
+    build_s = time.perf_counter() - t0
+    model, res = train_bbdm.train(cfg, BBDM_STEPS, model, device=BBDM_DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches_zero(kernels, "bbdm")
+    log = res["log"]
+    check(len(log) == BBDM_STEPS // BBDM_VALID and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
+        for r in log), f"bbdm: losses {log}")
+    run = RUNBBDM / "bbdm"
+    top = sorted(p.name for p in (run / "ckpt_top").iterdir())
+    files = {Path(f["file"]).relative_to(run).as_posix(): f
+             for f in saves.files if Path(f["file"]).is_relative_to(run)}
+    check(sorted(p.name for p in (run / "ckpt").iterdir()) ==
+          [str(BBDM_STEPS)] and top == sorted(str(r["it"]) for r in log)
+          and {"bbdm_best.pt", "bbdm_latest.pt", f"ckpt/{BBDM_STEPS}/"
+               "state.pt"} <= {k.replace(".tmp-", "") for k in files},
+          f"bbdm: checkpoints latest {list((run / 'ckpt').iterdir())}, "
+          f"top-k {top}, files {sorted(files)}")
+    steady = log[1:] or log
+    sps = sum(r["steps"] for r in steady) / sum(r["seconds"] for r in steady)
+    written = [f for f in files.values() if f["written"]]
+    check(len(written) == 1 and Path(written[0]["file"]).parent.parent ==
+          BBDM_CKPT and written[0]["bytes"] > 10 ** 10,
+          f"bbdm: the latest checkpoint alone is written to disk: {files}")
+    out = {"steps": BBDM_STEPS, "batch": cfg.data.batch_size,
+           "build_s": build_s, "wall_s": wall,
+           "steady_steps_per_s": sps, "steady_step_ms": 1e3 / sps,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "log": log, "ckpt_top": top,
+           "checkpoint_bytes": written[0]["bytes"],
+           "checkpoint_write_s": written[0]["seconds"],
+           "files": files, "launches": launches}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bbdm_sample(torch) -> dict:
+    """(b) ``run.sample_only`` (``sample_eval``) in (a)'s run directory: a
+    fresh model restores (a)'s latest checkpoint from disk and samples the
+    two test conditions, two samples each (one batch sampled twice):
+    seconds to build and restore, seconds per 200-step sampling batch, the
+    grids, samples in [0, 1], the diversity."""
+    import numpy as np
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_bbdm
+    cfg = parse_config(BBDM_ARGV + ["--run.sample_only=true"])
+    run = RUNBBDM / cfg.run.name
+    check(run == BBDM_CKPT.parent, f"bbdm sample: run directory {run}")
+    sampling = []
+    sample_to_eval = train_bbdm.sample_to_eval
+
+    def timed_sample_to_eval(*args, **kwargs):
+        t = time.perf_counter()
+        got = sample_to_eval(*args, **kwargs)
+        sampling.append(time.perf_counter() - t)    # ends in .cpu()
+        return got
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    train_bbdm.sample_to_eval = timed_sample_to_eval
+    t0 = time.perf_counter()
+    try:
+        samples, scores = train_bbdm.sample_eval(cfg, n_per_cond=2,
+                                                 device=BBDM_DEV)
+    finally:
+        train_bbdm.sample_to_eval = sample_to_eval
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    size = cfg.data.image_size
+    launches = _launches_zero(kernels, "bbdm sample")
+    grids = sorted(p.name for p in (run / "sample_to_eval").iterdir())
+    check(samples.shape == (2, 2, size, size, 1) and
+          np.isfinite(samples).all() and samples.min() >= 0.0 and
+          samples.max() <= 1.0 and math.isfinite(scores["diversity"]) and
+          grids == ["cond0.png"],
+          f"bbdm sample: {samples.shape} {scores} {grids}")
+    # sample_eval logs its scores at the step it restored
+    records = [json.loads(line) for line in
+               (run / "metrics.jsonl").read_text().splitlines()]
+    steps = [r.get("step") for r in records if "sample_eval/diversity" in r]
+    check(steps == [BBDM_STEPS], f"bbdm sample: sample_eval logged at "
+          f"steps {steps}, not at the restored step {BBDM_STEPS}")
+    # one test batch of the two conditions, sampled twice
+    out = {"conditions": 2, "samples_per_condition": 2,
+           "wall_s": wall, "build_and_restore_s": wall - sampling[0],
+           "restored_step": steps[0], "sampling_batch_s": sampling[0] / 2,
+           "sampling_batch": 2, "diversity": scores["diversity"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "grids": grids, "launches": launches}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _e2eb_train(torch, argv, iters: int, label: str) -> dict:
+    """``train_end2end_bbdm.train`` at full width on the card: finite
+    losses, val and test Dice, a panel per validation. Returns the stats
+    with it/s (steady where there are two chunks), the peak and the
+    launches."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_end2end_bbdm
+    cfg = parse_config(E2EB_ARGV + argv)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    engine, results = train_end2end_bbdm.train(cfg, iters, device=BBDM_DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _check_full_bbdm(engine.problems[0].module, cfg.model.compute_dtype,
+                     label)
+    chunks = results["chunks"]
+    for c in chunks:
+        for k in ("loss_netG", "loss_unet", "val_score"):
+            check(math.isfinite(c[k]), f"{label}: {k} not finite: {c}")
+    check(math.isfinite(results.get("test_dice", float("nan"))),
+          f"{label}: no test Dice: {results}")
+    panels = sorted(p.name for p in
+                    (RUNBBDM / cfg.run.name / "panels").iterdir())
+    check(panels == sorted(f"it{c['it']}.png" for c in chunks),
+          f"{label}: panels {panels}")
+    steady = chunks[1:] or chunks
+    its = sum(c["iters"] for c in steady) / sum(c["seconds"] for c in steady)
+    out = {"iters": iters, "wall_s": wall, "it_per_s": its,
+           "iter_ms": 1e3 / its, "steady": len(chunks) > 1,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "val_scores": [c["val_score"] for c in chunks],
+           "test_dice": results["test_dice"], "panels": panels,
+           "last_metrics": {k: chunks[-1][k] for k in (
+               "loss_netG", "loss_unet", "arch_grad_norm")},
+           "launches": launches}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _e2eb_iters(torch, argv, iters: int, label: str) -> dict:
+    """``iters`` engine iterations of ``end2end_bbdm`` built as ``train``
+    builds it (no validation, panels or checkpoints), the trainer's index
+    streams: seconds an iteration (host clock, ending in a sync), the
+    metrics, the peak and the launches."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.data.pipeline import (take_batch,
+                                                           to_device_split)
+    from semantic_segmentation_torch.train.common import load_splits
+    from semantic_segmentation_torch.train.train_end2end import index_streams
+    from semantic_segmentation_torch.train.train_end2end_bbdm import (
+        PROBLEMS, build_engine)
+    cfg = parse_config(E2EB_ARGV + argv)
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _ = build_engine(cfg, BBDM_DEV)
+    _check_full_bbdm(engine.problems[0].module, cfg.model.compute_dtype,
+                     label)
+    splits = load_splits(cfg)
+    tr, va = (to_device_split(splits[k], BBDM_DEV) for k in ("train", "val"))
+    streams, val_stream = index_streams(cfg, cfg.data.n_train,
+                                        cfg.data.n_val, names=PROBLEMS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(iters):
+        m = engine.engine_step([{n: take_batch(tr, next(s))
+                                 for n, s in streams.items()}],
+                               take_batch(va, next(val_stream)))
+        metrics.append({k: float(v) for k, v in m.items()})
+    seconds = (time.perf_counter() - t0) / iters
+    launches = dict(kernels.LAUNCHES)
+    check(all(math.isfinite(v) for m in metrics for v in m.values()),
+          f"{label}: {metrics}")
+    out = {"iters": iters, "seconds_per_iter": seconds, "metrics": metrics,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bbdm_small_card_vs_cpu(torch) -> dict:
+    """(f) the denoiser at a small width (model_channels 16, one res block,
+    mult (1, 2), attention at ds 2, 32^2, f32, TF32 off) on the card
+    against the CPU from the same non-zero weights: one forward, and a
+    10-step sampling run (T = 20) with the same per-step noises."""
+    from semantic_segmentation_torch.models.diffusion.bbdm import \
+        BridgeSchedule
+    from semantic_segmentation_torch.train.train_bbdm import BBDMModel
+    models = {}
+    for dev in ("cpu", BBDM_DEV):
+        models[dev] = BBDMModel(
+            1, model_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+            schedule=BridgeSchedule(num_timesteps=20, sample_step=10),
+            compute_dtype="float32", device=dev, ema=False,
+            generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():           # every layer non-zero: the zero-init
+        cpu = models["cpu"]         # out_convs would make the output 0
+        for p in cpu.unet.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        cpu.arch.copy_(0.5 * torch.randn(cpu.arch.shape, generator=gen))
+        models[BBDM_DEV].unet.load_state_dict(cpu.unet.state_dict())
+        models[BBDM_DEV].arch.copy_(cpu.arch)
+    x = torch.rand(2, 1, 32, 32, generator=gen) * 2 - 1
+    y = torch.rand(2, 1, 32, 32, generator=gen) * 2 - 1
+    t = torch.tensor([3, 17])
+    noises = [torch.randn(2, 1, 32, 32, generator=gen) for _ in range(10)]
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, m in models.items():
+            with torch.no_grad():
+                fwd = m.denoiser()(x.to(dev), t.to(dev), y.to(dev), False)
+            sample = m.sample_loop(y.to(dev),
+                                   noises=[n.to(dev) for n in noises])
+            out[dev] = (fwd.cpu(), sample.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    fwd_gap = gap(out[BBDM_DEV][0], out["cpu"][0])
+    sample_gap = gap(out[BBDM_DEV][1], out["cpu"][1])
+    check(float(out["cpu"][0].abs().max()) > 0.1,
+          "bbdm small: the forward is 0")
+    check(fwd_gap <= 1e-5 and sample_gap <= 1e-4,
+          f"bbdm small: card against CPU forward {fwd_gap}, 10-step "
+          f"sampling {sample_gap}")
+    del models
+    torch.cuda.empty_cache()
+    return {"forward_gap": fwd_gap, "sampling_gap": sample_gap}
+
+
+def phase_bbdm(torch, flagship: dict) -> dict:
+    """Phase 7f: pixel-space BBDM on the card. Returns {label: stats}."""
+    t_phase = time.perf_counter()
+    out = {}
+    shutil.rmtree(RUNBBDM, ignore_errors=True)   # (b) reads (a)'s run alone
+    saves = CountedSaves(torch, BBDM_CKPT)
+    with saves:
+        out["bbdm_trainer"] = a = _bbdm_train(torch, saves)
+        print(f"[bbdm] batch 8: steady {a['steady_steps_per_s']:.3f} "
+              f"steps/s ({a['steady_step_ms']:.1f} ms a step), peak "
+              f"{a['peak_mem_bytes']} bytes, losses "
+              f"{[(r['loss'], r['val_loss']) for r in a['log']]}, top-k "
+              f"{a['ckpt_top']}, the latest checkpoint "
+              f"{a['checkpoint_bytes']} bytes written in "
+              f"{a['checkpoint_write_s']:.1f} s")
+        out["bbdm_sample"] = b = _bbdm_sample(torch)
+        print(f"[bbdm sample] restored step {b['restored_step']} (build "
+              f"and restore {b['build_and_restore_s']:.1f} s); "
+              f"{b['sampling_batch_s']:.2f} s per 200-step sampling batch "
+              f"of 2, diversity {b['diversity']:.4f}, grids {b['grids']}, "
+              f"peak {b['peak_mem_bytes']} bytes")
+        out.update(_phase_e2eb(torch, flagship))
+    counted = [f for f in saves.files if not f["written"]]
+    out["bbdm_saves"] = {"files": len(counted),
+                         "bytes": sum(f["bytes"] for f in counted),
+                         "seconds": sum(f["seconds"] for f in counted)}
+    g = _bbdm_small_card_vs_cpu(torch)
+    out["bbdm_small"] = g
+    print(f"[bbdm small] card against CPU: forward {g['forward_gap']:.2e}, "
+          f"10-step sampling {g['sampling_gap']:.2e} of the largest")
+    out["bbdm_phase"] = {"wall_s": time.perf_counter() - t_phase}
+    print(f"[bbdm] phase 7f took {out['bbdm_phase']['wall_s']:.1f} s; "
+          f"{out['bbdm_saves']['files']} checkpoint and weight files of "
+          f"{out['bbdm_saves']['bytes']} bytes serialized in "
+          f"{out['bbdm_saves']['seconds']:.1f} s and not written to disk")
+    return out
+
+
+def _phase_e2eb(torch, flagship: dict) -> dict:
+    """(c) ``end2end_bbdm`` at its preset through ``train`` (validation,
+    panels, checkpoints); (d) the fake branch and the photometric chain and
+    (e) its ``darts`` mode as engine iterations."""
+    out = {}
+    out["end2end_bbdm"] = c = _e2eb_train(
+        torch, ["--engine.valid_step=5"], E2EB_ITERS, "end2end_bbdm")
+    check(all(v == 0 for v in c["launches"].values()),
+          f"end2end_bbdm (loss_lambda 0): a kernel launched: "
+          f"{c['launches']}")
+    print(f"[end2end_bbdm] loss_lambda 0: {c['it_per_s']:.3f} it/s, peak "
+          f"{c['peak_mem_bytes']} bytes, panels {c['panels']}, launches "
+          f"{c['launches']}; the U-Net flagship (phase 7) "
+          f"{flagship['steady_it_per_s']:.2f} it/s")
+    out["end2end_bbdm_fake"] = d = _e2eb_iters(
+        torch, ["--optim.loss_lambda=1.0"], E2EB_FAKE_ITERS,
+        "end2end_bbdm fake")
+    check(d["launches"]["warp_affine"] == E2EB_FAKE_ITERS and
+          d["launches"]["equalize_uint8"] == 0 and
+          d["launches"]["histogram256"] == d["launches"]["conv_down4"] == 0,
+          f"end2end_bbdm fake: launches {d['launches']}, expected one "
+          "warp per unet inner step")
+    print(f"[end2end_bbdm fake] loss_lambda 1: {d['seconds_per_iter']:.2f} "
+          f"s an iteration (a 200-step sampling at batch 2 inside), peak "
+          f"{d['peak_mem_bytes']} bytes, launches {d['launches']}")
+    out["end2end_bbdm_photometric"] = e = _e2eb_iters(
+        torch, ["--optim.loss_lambda=1.0",
+                "--engine.fake_postprocess=photometric"], 1,
+        "end2end_bbdm photometric")
+    check(e["launches"]["warp_affine"] == 1 and
+          e["launches"]["equalize_uint8"] == 1,
+          f"end2end_bbdm photometric: launches {e['launches']}")
+    print(f"[end2end_bbdm photometric] {e['seconds_per_iter']:.2f} s, "
+          f"launches {e['launches']}")
+    # (e) the reference's darts: its hypergradient exactly 0
+    out["end2end_bbdm_darts"] = f = _e2eb_iters(
+        torch, ["--engine.hypergrad=darts"], 1, "end2end_bbdm darts")
+    check(f["metrics"][0]["arch_grad_norm"] == 0.0 and
+          all(v == 0 for v in f["launches"].values()),
+          f"end2end_bbdm darts: hypergradient not exactly 0, or a kernel "
+          f"launched: {f}")
+    print(f"[end2end_bbdm darts] one iteration in "
+          f"{f['seconds_per_iter']:.2f} s, hypergradient exactly 0, peak "
+          f"{f['peak_mem_bytes']} bytes")
+    return out
+
+
 def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
     ``bench.kernels`` (the histogram, at (4, 256, 256), then the cluster
@@ -2001,6 +2446,28 @@ def run_timing_child() -> tuple[dict, dict]:
     return child["records"], child["launches"]
 
 
+def bbdm_child(torch, flagship_it_per_s: float) -> int:
+    """Phase 7f in this (fresh) process; its stats go to BBDM_FILE."""
+    from semantic_segmentation_torch.train.train_bbdm import \
+        prefer_cudnn_heuristic_mode_b
+    prefer_cudnn_heuristic_mode_b(BBDM_DEV)     # before the first conv
+    out = phase_bbdm(torch, {"steady_it_per_s": flagship_it_per_s})
+    BBDM_FILE.write_text(json.dumps(out))
+    return 0
+
+
+def run_bbdm_child(flagship: dict) -> dict:
+    """Phase 7f in a child process; {label: stats}."""
+    sys.stdout.flush()
+    BBDM_FILE.unlink(missing_ok=True)
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         BBDM_ARG, str(flagship["steady_it_per_s"])]
+                        ).returncode
+    check(rc == 0 and BBDM_FILE.is_file(),
+          f"phase 7f: the child process exited {rc}")
+    return json.loads(BBDM_FILE.read_text())
+
+
 def main() -> int:
     try:
         import torch
@@ -2018,6 +2485,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == [TIMING_ARG]:
         return timing_child(torch)
+    if sys.argv[1:2] == [BBDM_ARG]:
+        return bbdm_child(torch, float(sys.argv[2]))
     from semantic_segmentation_torch.bench.timing import card_line
 
     # 1. device
@@ -2086,6 +2555,15 @@ def main() -> int:
     # train_pix2pix_3d, train_unet3d, and the small case card against CPU
     for label, stats in phase_3d(torch,
                                  trainer_stats["end2end_trainer"]).items():
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        if "launches" in stats:
+            paths[label] = stats["launches"]
+
+    # 7f. pixel-space BBDM, in a fresh process: train_bbdm, sample_only,
+    # end2end_bbdm at its preset, with the fake branch and the
+    # photometric chain, darts, and the small case card against CPU
+    for label, stats in run_bbdm_child(
+            trainer_stats["end2end_trainer"]).items():
         print(f"[{label}] {card}: " + json.dumps(stats))
         if "launches" in stats:
             paths[label] = stats["launches"]

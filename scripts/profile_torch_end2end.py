@@ -7,12 +7,16 @@ the GPU.
         [--out build/profile_torch_end2end.json]
 
 Builds the engine of ``--preset`` (``end2end_jsrt``, ``end2end_nas``,
-``end2end_isic``, ``end2end_isic224`` or ``end2end_3d``; its hypergradient
+``end2end_isic``, ``end2end_isic224``, ``end2end_3d`` or ``end2end_bbdm``;
+its hypergradient
 mode, or ``--hypergrad``) of ``semantic_segmentation_torch`` at the
 preset's full width (the flagship's: 256^2, batch 2, unet_256, ngf = ndf =
 64, U-Net base 64; ``end2end_isic224``: 224^2, resnet_9blocks, the lite
 Swin-UNet; ``end2end_3d``: 64^3 crops, batch 1, the 3D NAS generator with
-6 downs at ngf 64, the 3D PatchGAN at ndf 64, UNet3D at base 64; bf16
+6 downs at ngf 64, the 3D PatchGAN at ndf 64, UNet3D at base 64;
+``end2end_bbdm``: 256^2, batch 2, the ADM denoiser at full width, U-Net
+base 64, the preset's ``loss_lambda`` 0, under cuDNN's heuristic mode B as
+its entry point runs; bf16
 autocast, synthetic data), warms it up, times ``--iters`` engine iterations
 (host clock, ending in a device sync), then traces ``--profile-iters`` more
 with ``torch.profiler`` and reports: device busy and idle share of the
@@ -121,7 +125,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="end2end_jsrt",
                     choices=("end2end_jsrt", "end2end_nas", "end2end_isic",
-                             "end2end_isic224", "end2end_3d"))
+                             "end2end_isic224", "end2end_3d",
+                             "end2end_bbdm"))
     ap.add_argument("--hypergrad", default=None,
                     choices=("darts", "unroll", "decay_only", "none"),
                     help="default: the preset's")
@@ -153,12 +158,22 @@ def main() -> int:
         argv.append(f"--engine.hypergrad={args.hypergrad}")
     dev = torch.device("cuda")
     model3d = None
+    names = PROBLEMS
     if args.preset == "end2end_3d":
         from semantic_segmentation_torch.train import train_end2end_3d as e3d
         cfg = parse_config(argv + ["--preset=end2end_3d", "--data.n_train=4",
                                    "--data.n_val=2", "--data.n_test=0"])
         engine, model3d = e3d.build_engine(cfg, dev, 6, "linear")
         splits = e3d.load_volume_splits(cfg, 64)
+    elif args.preset == "end2end_bbdm":
+        from semantic_segmentation_torch.train import train_end2end_bbdm
+        # as the entry point does, before the process's first conv
+        train_end2end_bbdm.prefer_cudnn_heuristic_mode_b(dev)
+        cfg = parse_config(argv + ["--data.n_train=4", "--data.n_val=2",
+                                   "--data.n_test=0"], preset=args.preset)
+        engine, _, _ = train_end2end_bbdm.build_engine(cfg, dev)
+        splits = load_splits(cfg)
+        names = train_end2end_bbdm.PROBLEMS
     else:
         cfg = parse_config(argv, preset=args.preset)
         engine, _, _ = build_engine(cfg, dev)
@@ -168,7 +183,7 @@ def main() -> int:
     n_train = len(next(iter(splits["train"].values())))
     streams = {n: epoch_index_batches(n_train, cfg.data.batch_size,
                                       seed=cfg.run.seed * 7 + i)
-               for i, n in enumerate(PROBLEMS)}
+               for i, n in enumerate(names)}
     val_stream = epoch_index_batches(len(next(iter(splits["val"].values()))),
                                      cfg.data.batch_size,
                                      seed=cfg.run.seed + 99)
@@ -228,6 +243,12 @@ def main() -> int:
                    f"ngf=ndf={cfg.model.ngf}, UNet3D base "
                    f"{cfg.model.base_features}, bf16 autocast, synthetic"
                    if model3d is not None else
+                   f"{args.preset}, hypergrad {cfg.engine.hypergrad}, "
+                   "256^2, batch 2, the ADM denoiser at model_channels 128, "
+                   f"mult (1, 4, 8), loss_lambda {cfg.optim.loss_lambda}, "
+                   f"U-Net base {cfg.model.base_features}, bf16 autocast, "
+                   "synthetic"
+                   if args.preset == "end2end_bbdm" else
                    f"{args.preset}, hypergrad {cfg.engine.hypergrad}, "
                    f"{cfg.data.image_size}^2, batch {cfg.data.batch_size}, "
                    f"{cfg.model.netG}, ngf=ndf={cfg.model.ngf}, "

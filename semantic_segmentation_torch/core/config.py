@@ -90,9 +90,11 @@ class OptimConfig:
     lr_decay_iters: int = 50
     plateau_patience: int = 5        # ReduceLROnPlateau(max, patience=5)
     plateau_factor: float = 0.1
-    accumulate: int = 1              # seg optimizer: the mean of k
-                                     # micro-gradients steps RMSprop on
-                                     # every k-th step (optax.MultiSteps)
+    accumulate: int = 1              # the seg optimizer (and train_bbdm's
+                                     # Adam, BBDM accumulate_grad_batches):
+                                     # the mean of k micro-gradients steps
+                                     # it on every k-th step
+                                     # (optax.MultiSteps)
 
 
 @dataclass
@@ -126,6 +128,10 @@ class RunConfig:
     save_every: int = 0              # end2end: save the engine state every N
                                      # iterations; pix2pix: G/D every N
                                      # epochs; 0 = only at the end
+    topk_checkpoints: int = 3        # BBDM top-k-by-val-loss retention
+    sample_only: bool = False        # BBDM main.py without -t: restore the
+                                     # latest checkpoint, sample_to_eval and
+                                     # the diversity score, no training
     seg_pretrained: str = ""         # torch checkpoint to start the seg
                                      # net from: torchvision
                                      # deeplabv3_resnet50 / ImageNet
@@ -212,7 +218,19 @@ PRESETS: dict[str, dict[str, Any]] = {
                    "data.batch_size": 1, "model.norm": "instance",
                    "optim.lr": 2e-4, "engine.hypergrad": "decay_only",
                    "run.name": "end2end-3d"},
+    # BBDM Template-BBDM.yaml regime (pixel space)
+    "bbdm": {"data.batch_size": 8, "engine.train_iters": 400000,
+             "engine.valid_step": 50, "run.name": "bbdm"},
+    # BBDM/train_end2end.py:278: fake weight 0.0; the same structural zero
+    # (sampled fakes detached, outer loss = unet val loss)
+    "end2end_bbdm": {"optim.loss_lambda": 0.0,
+                     "engine.hypergrad": "decay_only",
+                     "run.name": "end2end-bbdm"},
 }
+
+# options of the JAX package's config that the port refuses as unknown,
+# and the ROADMAP.md section 1 item that ports each
+NOT_PORTED = {"run.data_axis": 13}
 
 
 def _set_by_path(cfg: Config, path: str, raw: str | Any):
@@ -220,6 +238,10 @@ def _set_by_path(cfg: Config, path: str, raw: str | Any):
     obj: Any = getattr(cfg, section, None)
     by_name = {f.name: f for f in fields(obj)} if obj is not None else {}
     if leaf not in by_name:
+        if path in NOT_PORTED:
+            raise SystemExit(f"unknown option --{path}: not ported yet "
+                             f"(ROADMAP.md section 1, item {NOT_PORTED[path]}"
+                             ": the parallel layer)")
         raise SystemExit(f"unknown option --{path} (the port has no such "
                          "field, or does not implement it yet)")
     value = raw

@@ -92,8 +92,8 @@ DATASET_SPECS: dict[str, DatasetSpec] = {
                           image_norm="minmax", mask_policy="ids"),
 }
 
-# the families of the JAX package's make_dataset that are not folders of
-# paired files, and the ROADMAP.md section 1 item that ports each
+# the families of the JAX package's make_dataset that the port does not load
+# yet, and the ROADMAP.md section 1 item that ports each
 UNPORTED_FAMILIES = {
     "b_subtilis": 8, "bsubtilis": 8, "omnipose": 8, "diabetic": 8,
     "deepict": 8, "deepict_test": 8, "nib": 8,
@@ -179,13 +179,30 @@ def make_dataset(name: str, root: str, mask_suffix: str = "",
                  image_size: int | None = None):
     """The folder families of DATASET_SPECS (any other name takes the
     default spec, as in the JAX package), ``<root>/Images`` and
-    ``<root>/Masks``; ``image_size`` overrides the spec's. The in-memory
-    and BBDM families are not ported yet and raise."""
+    ``<root>/Masks``; ``image_size`` overrides the spec's. The BBDM
+    families: ``bbdm_aligned`` is the paired layout (RGB, no equalize),
+    and ``bbdm_single``, ``bbdm_colorization_rgb``,
+    ``bbdm_colorization_lab`` and ``bbdm_inpainting`` read ONE image
+    folder (``<root>/Images`` when present, else ``root``), at 256^2 unless
+    ``image_size`` says otherwise. The other in-memory families are not
+    ported yet and raise."""
     key = name.lower()
-    if key.startswith("bbdm_"):
-        raise NotImplementedError(
-            f"dataset {name!r}: the BBDM families come with ROADMAP.md "
-            "section 1 item 10")
+    if key.startswith("bbdm_") and key != "bbdm_aligned":
+        from semantic_segmentation_torch.data.extra import BBDM_FAMILIES
+        task = key[len("bbdm_"):]
+        if task not in BBDM_FAMILIES:
+            raise ValueError(f"unknown BBDM dataset variant: {name}")
+        img_dir = os.path.join(root, images_sub)
+        if not os.path.isdir(img_dir):
+            img_dir = root
+        return BBDM_FAMILIES[task](img_dir, image_size=image_size or 256,
+                                   flip=False)
+    if key == "bbdm_aligned":      # custom_aligned: the generic paired layout
+        return PairedImageFolder(
+            os.path.join(root, images_sub), os.path.join(root, masks_sub),
+            mask_suffix=mask_suffix,
+            spec=DatasetSpec(rgb=True, equalize_gamma=False,
+                             image_size=image_size or 256))
     if key in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet (ROADMAP.md section 1 item "

@@ -1,9 +1,10 @@
-"""Generative-quality evaluation, the GenSeg-3D part — the port of the
-volume metrics of ``semantic_segmentation_tpu/ops/gen_metrics.py``
+"""Generative-quality evaluation — the port of the volume metrics of
+``semantic_segmentation_tpu/ops/gen_metrics.py``
 (``GenSeg-3D/util/evaluation.py``): masked MAE / MSE / PSNR and a windowed
 SSIM between generated and real volumes, written to CSV (the reference
-writes an Excel sheet). numpy, identical to the JAX package's. FID, LPIPS
-and sample diversity come with ROADMAP.md section 1, item 12.
+writes an Excel sheet); and BBDM's sample diversity
+(``BBDM/evaluation/diversity.py``). numpy, identical to the JAX package's.
+FID and LPIPS come with ROADMAP.md section 1, item 12.
 """
 
 from __future__ import annotations
@@ -43,6 +44,12 @@ def volume_metrics(fake: np.ndarray, real: np.ndarray,
     psnr = float(10.0 * np.log10(rng ** 2 / mse)) if mse > 0 else float("inf")
     return {"mae": mae, "mse": mse, "psnr": psnr,
             "ssim": ssim(fake.squeeze(), real.squeeze())}
+
+
+def sample_diversity(samples: np.ndarray) -> float:
+    """diversity.py: mean pixel std over repeated samples per condition.
+    ``samples`` shape (n_conditions, n_samples, H, W, C)."""
+    return float(np.mean(np.std(samples, axis=1)))
 
 
 def write_metrics_csv(rows: list[dict], path: str):

@@ -160,6 +160,16 @@ def load_seg_state(cfg: Config, net: torch.nn.Module, model_file: str = ""):
     return net, True
 
 
+def fold_generator(seed: int, fold: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, fold)``: the port's
+    ``jax.random.fold_in(key(seed), fold)``, a stream that is a function of
+    its fold alone, so a resumed run draws as the uninterrupted one without
+    any generator state."""
+    hi, lo = np.random.SeedSequence([seed, fold]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        (int(hi) << 32) | int(lo))
+
+
 def autocast_for(cfg: Config, device: torch.device):
     """``model.compute_dtype=bfloat16`` -> torch.autocast in bf16 (params
     and BN statistics stay float32, as in the JAX package)."""

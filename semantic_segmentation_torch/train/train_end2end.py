@@ -274,13 +274,15 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     return engine, p2p, seg
 
 
-def index_streams(cfg: Config, n_train: int, n_val: int, start: int = 0):
-    """The batch-index streams of the three inner problems and the
-    validation stream, fast-forwarded to iteration ``start``: each inner
-    stream draws K batches an iteration, the validation stream one."""
+def index_streams(cfg: Config, n_train: int, n_val: int, start: int = 0,
+                  names=PROBLEMS):
+    """The batch-index streams of the inner problems ``names`` (the i-th
+    seeded ``seed * 7 + i``) and the validation stream, fast-forwarded to
+    iteration ``start``: each inner stream draws K batches an iteration,
+    the validation stream one."""
     streams = {name: epoch_index_batches(n_train, cfg.data.batch_size,
                                          seed=cfg.run.seed * 7 + i)
-               for i, name in enumerate(PROBLEMS)}
+               for i, name in enumerate(names)}
     val_stream = epoch_index_batches(n_val, cfg.data.batch_size,
                                      seed=cfg.run.seed + 99)
     for s in streams.values():

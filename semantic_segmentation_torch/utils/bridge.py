@@ -14,7 +14,8 @@ the kind of port module that owns them:
 - ``BatchNorm2d`` (any rank): scale/bias <-> weight/bias, stats mean/var
   <-> running_mean/running_var; ``InstanceNorm`` has no leaves;
 - ``nn.Linear`` (flax ``Dense``) kernel: (in, out) <-> (out, in);
-- ``nn.LayerNorm``: scale/bias <-> weight/bias;
+- ``nn.LayerNorm`` and the denoiser's flax-rule ``GroupNorm``: scale/bias
+  <-> weight/bias;
 - any other leaf (the Swin's ``rel_pos_bias`` table) as it is.
 
 The arch dict ({'conv', 'upconv'} tables) converts as it is.
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from semantic_segmentation_torch.models.diffusion.adm_unet import GroupNorm
 from semantic_segmentation_torch.ops.layers import BatchNorm2d
 from semantic_segmentation_torch.ops.nas import MixedConvTranspose
 
@@ -104,7 +106,7 @@ def state_dict_to_flax(module: nn.Module, state_dict: dict):
             leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
                     "running_var": "var"}[leaf]
             tree = stats if leaf in ("mean", "var") else params
-        elif isinstance(owner, nn.LayerNorm):
+        elif isinstance(owner, (nn.LayerNorm, GroupNorm)):
             leaf = {"weight": "scale", "bias": "bias"}[leaf]
         elif leaf == "weight":
             leaf = "kernel"

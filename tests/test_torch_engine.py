@@ -15,8 +15,6 @@ from semantic_segmentation_tpu.core.config import parse_config as jparse
 from semantic_segmentation_tpu.data.pipeline import device_put_split
 from semantic_segmentation_tpu.ops.augment import sample_affine_batch
 from semantic_segmentation_tpu.train.common import load_splits as jload_splits
-from semantic_segmentation_tpu.train.train_end2end import \
-    build_engine_and_state
 from semantic_segmentation_torch.core.config import parse_config
 from semantic_segmentation_torch.data.pipeline import (epoch_index_batches,
                                                        take_batch,
@@ -25,6 +23,7 @@ from semantic_segmentation_torch.train.common import load_splits
 from semantic_segmentation_torch.train.train_end2end import (PROBLEMS,
                                                              build_engine)
 from semantic_segmentation_torch.utils.bridge import load_flax
+from tests.test_torch_engine_modes import jit_build_engine_and_state
 
 ARGV = ["--data.synthetic=true", "--data.image_size=32", "--data.n_train=4",
         "--data.n_val=2", "--data.n_test=2", "--model.compute_dtype=float32",
@@ -47,7 +46,8 @@ def test_three_decay_only_iterations_match_jax():
     cfg = parse_config(ARGV + ["--run.device=cpu"], preset="end2end_jsrt")
     assert cfg.engine.hypergrad == jcfg.engine.hypergrad == "decay_only"
 
-    engine_j, state, _, _ = build_engine_and_state(jcfg, jax.random.key(0))
+    engine_j, state, _, _ = jit_build_engine_and_state(jcfg,
+                                                       jax.random.key(0))
     jsplits = jload_splits(jcfg)
     splits = load_splits(cfg)
     for k in ("image", "mask", "image_pix2pix", "mask_pix2pix"):

@@ -41,7 +41,7 @@ from semantic_segmentation_tpu.data.pipeline import device_put_split
 from semantic_segmentation_tpu.ops.augment import sample_affine_batch
 from semantic_segmentation_tpu.train.common import load_splits as jload_splits
 from semantic_segmentation_tpu.train.train_end2end import (
-    build_engine as jbuild_engine, build_engine_and_state)
+    build_engine as jbuild_engine, build_engine_and_state, init_engine_state)
 from semantic_segmentation_torch.core.config import parse_config
 from semantic_segmentation_torch.data.pipeline import (epoch_index_batches,
                                                        take_batch,
@@ -81,6 +81,20 @@ def _unet_affines(root, step: int, phase: str, batch: int, size: int):
     rng_aug = jax.random.split(rng_p, 3)[0]
     return torch.from_numpy(np.array(sample_affine_batch(rng_aug, batch, size,
                                                          size)))
+
+
+def jit_build_engine_and_state(jcfg, key):
+    """The JAX package's ``build_engine_and_state`` with its init jitted:
+    flax's eager init of the nets compiles hundreds of small programs, a
+    minute or more on the CPU (the ISIC224 case's 72 s of 190). The jitted
+    init rounds apart from the eager one; the cases of this file keep the
+    eager start, since the live darts case's arch gradient moves by 1.2e-3
+    relative with it (the finite difference's conditioning, ROADMAP.md
+    section 3)."""
+    engine, p2p, seg = jbuild_engine(jcfg)
+    state = jax.jit(lambda k: init_engine_state(jcfg, engine, p2p, seg,
+                                                k))(key)
+    return engine, state, p2p, seg
 
 
 @pytest.fixture(scope="module")

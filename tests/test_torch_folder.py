@@ -91,11 +91,24 @@ def test_load_splits_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["deepict", "deepict_test", "nib",
                                   "b_subtilis", "omnipose", "diabetic",
-                                  "bbdm_single", "bbdm_aligned",
                                   "pix2pix_colorization"])
 def test_unported_families_raise(name, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_dataset(name, str(tmp_path))
+
+
+@pytest.mark.parametrize("name", ["bbdm_single", "bbdm_aligned"])
+def test_bbdm_families_load(name, tmp_path):
+    # ported with the BBDM slice (tests/test_torch_bbdm_data.py holds all
+    # five families against the JAX package): RGB items at the asked size
+    from tests.test_torch_bbdm_data import write_images
+    root = write_images(tmp_path / "d", masks=name == "bbdm_aligned")
+    got, ref = (make(name, str(root), image_size=24)
+                for make in (make_dataset, jmake))
+    assert len(got) == len(ref) == 3
+    assert got[0]["image_pix2pix"].shape == (24, 24, 3)
+    for k in ref[2]:
+        np.testing.assert_array_equal(got[2][k], ref[2][k])
 
 
 def test_stem_must_match_one_file(tmp_path):

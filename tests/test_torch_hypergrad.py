@@ -25,16 +25,19 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from semantic_segmentation_tpu.core.config import parse_config as jparse
 from semantic_segmentation_tpu.core.optim import adam_torch as jadam_torch
 from semantic_segmentation_tpu.engine.bilevel import \
     BilevelEngine as JBilevelEngine
 from semantic_segmentation_tpu.engine.bilevel import \
     InnerProblem as JInnerProblem
+from semantic_segmentation_tpu.train.common import load_splits as jload_splits
 from semantic_segmentation_torch.core.optim import adam_torch
 from semantic_segmentation_torch.engine.bilevel import (BilevelEngine,
                                                         InnerProblem)
 from semantic_segmentation_torch.ops import augment, conv, image
-from tests.test_torch_engine_modes import (jax_start,  # noqa: F401 fixture
+from tests.test_torch_engine_modes import (ARGV as MODES_ARGV,
+                                           jit_build_engine_and_state,
                                            three_iterations_against_jax)
 
 ETA, ALR, W0, TARGET = 0.1, 0.05, 0.5, 1.7
@@ -263,6 +266,15 @@ def test_conv_toy_matches_jax_engine(jax_conv_toy, mode):
 
 
 # -- the real nets under end2end_nas -------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_start():
+    """The JAX initial state (its init jitted: the eager one took 39 s of
+    this file's setup) and the splits."""
+    jcfg = jparse(MODES_ARGV, preset="end2end_jsrt")
+    _, state, _, _ = jit_build_engine_and_state(jcfg, jax.random.key(0))
+    return jax.device_get(state), jload_splits(jcfg)
+
 
 def test_three_unroll_iterations_match_jax(jax_start):
     three_iterations_against_jax("unroll_nas", *jax_start)

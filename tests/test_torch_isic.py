@@ -12,7 +12,7 @@ train_end2end.py:107 split 3 and fold_in 101 / 102). The cases:
   8, the photometric post-process and the Jaccard loss;
 - ``end2end_isic`` from a tiny ISIC-layout folder of RGB PNGs at
   ``--model.output_nc=3``: RGB fakes through the photometric chain, a
-  3-channel segmenter;
+  3-channel segmenter, from ``tests/test_torch_isic_folder.py``;
 - ``end2end_isic224`` on synthetic data with ``resnet_6blocks`` (ngf 8,
   dropout live in every block) and a small Swin-UNet (embed 12, depths
   2-2-2-2, heads 1-2-2-4, window 4, drop-path 0.2, set through
@@ -36,8 +36,10 @@ train_end2end.py:107 split 3 and fold_in 101 / 102). The cases:
   post-process within 1e-5 (measured 2.3e-6).
 
 The cases run from separate files so that their JAX compiles run on
-separate test workers. Losses within 5e-5 relative (the ISIC cases); the
-largest gaps are printed (``-s``)."""
+separate test workers. The JAX start state comes from a jitted init
+(``tests/test_torch_engine_modes.jit_build_engine_and_state``): flax's
+eager init took 72 s of the ISIC224 case's 190. Losses within 5e-5
+relative (the ISIC cases); the largest gaps are printed (``-s``)."""
 import copy
 
 import flax.linen as fnn
@@ -55,14 +57,13 @@ from semantic_segmentation_tpu.models import swin_unet as jswin
 from semantic_segmentation_tpu.models.pix2pix.networks import ResnetGenerator
 from semantic_segmentation_tpu.ops.augment import sample_affine_batch
 from semantic_segmentation_tpu.train.common import load_splits as jload_splits
-from semantic_segmentation_tpu.train.train_end2end import \
-    build_engine_and_state
 from semantic_segmentation_torch.core.config import parse_config
 from semantic_segmentation_torch.data.pipeline import (epoch_index_batches,
                                                        take_batch,
                                                        to_device_split)
 from semantic_segmentation_torch.train.common import load_splits
-from tests.test_torch_engine_modes import _sync_port
+from tests.test_torch_engine_modes import (_sync_port,
+                                          jit_build_engine_and_state)
 from tests.test_torch_nets import _nchw
 from tests.test_torch_photometric import _jax_draws
 
@@ -238,7 +239,7 @@ def engine_iterations_against_jax(case: str, tmp_path, monkeypatch):
     assert mode == jcfg.engine.hypergrad in ITERS
     isic = preset.startswith("end2end_isic")
     assert (cfg.engine.fake_postprocess == "photometric") == isic
-    engine_j, state, p2p_j, seg_j = build_engine_and_state(
+    engine_j, state, p2p_j, seg_j = jit_build_engine_and_state(
         jcfg, jax.random.key(0))
     assert seg_j.loss_type == ("jaccard" if isic else "dice")
     jsplits = jload_splits(jcfg)
@@ -339,8 +340,8 @@ def same_as_decay_only(cfg, engine, host, batches, replay, metrics):
                for k in engine.arch)
 
 
-@pytest.mark.parametrize("case", ["isic", "isic_rgb_folder"])
-def test_three_iterations_match_jax(case, tmp_path, monkeypatch):
+@pytest.mark.parametrize("case", ["isic"])      # the folder case: its own
+def test_three_iterations_match_jax(case, tmp_path, monkeypatch):  # file
     engine_iterations_against_jax(case, tmp_path, monkeypatch)
 
 

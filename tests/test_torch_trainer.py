@@ -117,7 +117,7 @@ def test_hypergrad_none_leaves_arch(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--run.data_axis=data"],
                                   ["--model.tapmm_down=true"],
-                                  ["--preset=end2end_bbdm"]])
+                                  ["--preset=end2end_sivae"]])
 def test_unported_options_are_refused(argv):
     # an option the port does not implement yet fails loudly instead of
     # being ignored
