@@ -171,6 +171,30 @@ Phases, each of which stops the script with a nonzero exit on failure:
    BBDM entry points do (``prefer_cudnn_heuristic_mode_b``: PyTorch reads
    it when a process plans its first conv, and the earlier phases ran
    convs); it prints its wall time;
+7g. the soft-intro VAE family at full width (256^2, batch 2, bf16, seed 0,
+   synthetic data with the presets' splits cut to 16/4/4; the ResNet-18
+   encoder with its 10 k3/k5/k7 cells, the z-conditioned U-Net decoder
+   unet_256 at ngf 64, latent 8): (a) ``train_vae --preset=sivae`` for 10
+   steps, the plain VAE for 5, then soft-intro (steady steps/s of each
+   phase, its first step timed apart; the peak; the checkpoint's bytes
+   and write seconds), and 3 steps under ``recon_loss_type='vgg'``
+   (random VGG16 weights from the seed); (b) ``end2end_sivae`` at its
+   preset (``decay_only``) for 20 iterations, validation every 10 (steady
+   it/s, the peak, a panel per validation, test Dice; the warp and the
+   equalize once each per U-Net inner step: 20 and 20), and ``darts`` for
+   3 (its ``arch_grad_norm`` exactly 0; 6 and 6); (c) ``inference_vae``
+   from (a)'s checkpoint, 3 styles a condition, the diversity under
+   LPIPS-alex with random weights (seconds per image); (d) FID and LPIPS
+   through ``train_bbdm.evaluate_samples`` on random arrays of BBDM's
+   sample shape, 32 conditions at 256^2, random feature nets (seconds per
+   batch of 16 of the pool3 features and of LPIPS-alex, the Frechet
+   distance's host seconds); (e) one ``soft_intro_step`` at 32^2
+   (decoder ngf 4, f32, TF32 off) on the card against the CPU from the
+   same weights and draws: the encoder step's losses within 1e-5
+   relative, the decoder step's (after the encoder's first Adam step,
+   whose signs rounding decides where a gradient is noise) within 1e-3,
+   and the updated state's gap to the largest value printed. No kernel launches
+   in (a), (c), (d). The phase prints its wall time;
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -1922,6 +1946,326 @@ def phase_3d(torch, flagship: dict) -> dict:
     return out
 
 
+# 7g. the soft-intro VAE family at full width: 256^2, decoder ngf 64
+# (unet_256, 8 downs), latent 8, the full-width ResNet-18 encoder with its
+# 10 cells, bf16 autocast, batch 2, synthetic data, seed 0
+RUNVAE = ROOT / "build" / "chip_smoke_vae"
+VAE_DEV = "cuda"
+VAE_STEPS, VAE_NUM_VAE, VAE_VGG_STEPS = 10, 5, 3
+SIVAE_ITERS, SIVAE_DARTS_ITERS, SIVAE_STYLES = 20, 3, 3
+# the splits cut to size (the presets' 32/8/594): one epoch is 8 steps
+VAE_ARGV = ["--data.synthetic=true", "--data.n_train=16", "--data.n_val=4",
+            "--data.n_test=4", f"--run.save_dir={RUNVAE}"]
+EVAL_SAMPLES, EVAL_BATCH = 32, 16     # BBDM's sample shape: (N, 1, 256^2, 1)
+
+
+def _check_full_vae(cfg, label: str):
+    check((cfg.data.image_size, cfg.model.ngf, cfg.model.compute_dtype,
+           cfg.data.batch_size, cfg.run.seed) ==
+          (256, 64, "bfloat16", 2, 0),
+          f"{label}: not the full-width soft-intro configuration")
+
+
+def _vae_train(torch) -> dict:
+    """(a) ``train_vae --preset=sivae``: 10 steps, the plain VAE for 5,
+    then soft-intro; then 3 steps under ``recon_loss_type='vgg'`` (random
+    VGG16 weights from the seed, one plain-VAE step then two soft-intro
+    ones). Steady steps/s of each phase (its first step timed apart), the
+    peak, the final checkpoint's bytes and write seconds; no kernel
+    launched."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_vae
+    out = {}
+    for label, steps, hp in (
+            ("mse", VAE_STEPS, train_vae.SIVAEParams(num_vae=VAE_NUM_VAE)),
+            ("vgg", VAE_VGG_STEPS, train_vae.SIVAEParams(
+                num_vae=1, recon_loss_type="vgg"))):
+        cfg = parse_config(["--preset=sivae"] + VAE_ARGV +
+                           [f"--run.name=sivae-{label}"])
+        _check_full_vae(cfg, f"train_vae {label}")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer, res = train_vae.train(cfg, steps, hp, device=VAE_DEV)
+        wall = time.perf_counter() - t0
+        launches = _launches_zero(kernels, f"train_vae {label}")
+        check(all(math.isfinite(v) for v in res["metrics"].values()) and
+              res["steps"] == steps, f"train_vae {label}: {res}")
+        phases = {}
+        for name, p in res["phases"].items():
+            check(p["steps"] > 0, f"train_vae {label}: no {name} step")
+            rest = p["seconds"] - p["first_step_seconds"]
+            phases[name] = {**p, "steady_steps_per_s":
+                            (p["steps"] - 1) / rest if p["steps"] > 1
+                            else None}
+        out[label] = {"steps": steps, "num_vae": hp.num_vae, "wall_s": wall,
+                      "phases": phases, "metrics": res["metrics"],
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "checkpoint_bytes": res["checkpoint"]["bytes"],
+                      "checkpoint_write_s": res["checkpoint"]["seconds"],
+                      "checkpoint": res["checkpoint"]["path"],
+                      "launches": launches}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sivae_e2e(torch, argv, iters: int, label: str) -> dict:
+    """``train_end2end_vae.train`` of the ``end2end_sivae`` preset on the
+    card: finite losses, val and test Dice, a panel per chunk; the warp
+    and the equalize launched once per U-Net inner step (``decay_only``:
+    one per iteration; ``darts``: two, the unroll's and the replay's), the
+    other kernels never; the darts hypergradient exactly 0."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_end2end_vae
+    cfg = parse_config(["--preset=end2end_sivae"] + VAE_ARGV + argv)
+    _check_full_vae(cfg, label)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    engine, results = train_end2end_vae.train(cfg, iters, device=VAE_DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    darts = cfg.engine.hypergrad == "darts"
+    unet_steps = iters * (2 if darts else 1)
+    want = {"warp_affine": unet_steps, "equalize_uint8": unet_steps,
+            "histogram256": 0, "conv_down4": 0}
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+    for c in results["chunks"]:
+        for k in ("loss_netG", "loss_netD", "loss_unet", "val_score"):
+            check(math.isfinite(c[k]), f"{label}: {k} not finite: {c}")
+        check(not darts or c["arch_grad_norm"] == 0.0,
+              f"{label}: darts hypergradient not exactly 0: {c}")
+    panels = sorted(p.name for p in (RUNVAE / cfg.run.name /
+                                     "panels").iterdir())
+    check(len(panels) == len(results["chunks"]) and
+          math.isfinite(results.get("test_dice", float("nan"))),
+          f"{label}: panels {panels}, results {results}")
+    steady = results["chunks"][1:] or results["chunks"]
+    its = sum(c["iters"] for c in steady) / sum(c["seconds"] for c in steady)
+    del engine
+    torch.cuda.empty_cache()
+    return {"hypergrad": cfg.engine.hypergrad, "iters": iters, "wall_s": wall,
+            "steady_it_per_s": its, "steady_iter_ms": 1e3 / its,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "arch_grad_norm": [c["arch_grad_norm"]
+                               for c in results["chunks"]],
+            "best_val": results["best_val"],
+            "test_dice": results["test_dice"], "panels": panels,
+            "launches": launches}
+
+
+def _random_alex(torch, seed: int):
+    """AlexNet-LPIPS with random weights (flax's laws) and lins from
+    ``seed``, on the card: the real ones are not in the repository."""
+    from semantic_segmentation_torch.models.extractors import (
+        ALEX_WIDTHS, AlexNetFeatures)
+    from semantic_segmentation_torch.models.vae.sivae import init_weights_
+    gen = torch.Generator().manual_seed(seed)
+    net = init_weights_(AlexNetFeatures(), gen).to(VAE_DEV).eval()
+    lins = [torch.rand(w, generator=gen) / w for w in ALEX_WIDTHS]
+    return net, lins
+
+
+def _vae_inference(torch, ckpt_dir: str) -> dict:
+    """(c) ``inference_vae`` from (a)'s checkpoint, 3 styles a condition,
+    the diversity under LPIPS-alex with random weights: seconds per
+    image, the files."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import inference_vae
+    cfg = parse_config(["--preset=sivae"] + VAE_ARGV +
+                       ["--run.name=sivae-mse"])
+    check(str(RUNVAE / cfg.run.name) == ckpt_dir,
+          f"inference_vae: run directory {ckpt_dir}")
+    alex = _random_alex(torch, 1)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = inference_vae.run(cfg, num_styles=SIVAE_STYLES, alex=alex,
+                            device=VAE_DEV)
+    wall = time.perf_counter() - t0
+    launches = _launches_zero(kernels, "inference_vae")
+    styles = sorted((RUNVAE / cfg.run.name / "inference" /
+                     "styles").iterdir())
+    check(res["images"] == cfg.data.n_val and
+          len(styles) == SIVAE_STYLES * res["images"] and
+          math.isfinite(res["diversity"]) and res["diversity"] > 0,
+          f"inference_vae: {res}, {len(styles)} style files")
+    return {"images": res["images"], "styles": SIVAE_STYLES,
+            "wall_s": wall, "seconds_per_image": wall / res["images"],
+            "diversity_lpips_alex_random_weights": res["diversity"],
+            "launches": launches}
+
+
+def _vae_eval_metrics(torch) -> dict:
+    """(d) FID and LPIPS through ``train_bbdm.evaluate_samples`` on random
+    arrays of BBDM's sample shape (32 conditions, one sample each,
+    256^2, one channel) with random feature nets: seconds per batch of
+    16 of the pool3 features and of LPIPS-alex on the card, and the
+    Frechet distance's host seconds (a 2048^2 ``sqrtm``)."""
+    import numpy as np
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.models.extractors import \
+        InceptionV3Pool3
+    from semantic_segmentation_torch.models.vae.sivae import init_weights_
+    from semantic_segmentation_torch.ops import gen_metrics
+    from semantic_segmentation_torch.train.train_bbdm import evaluate_samples
+    rng = np.random.default_rng(0)
+    samples = rng.random((EVAL_SAMPLES, 1, 256, 256, 1), np.float32)
+    reals = rng.random((EVAL_SAMPLES, 256, 256, 1), np.float32)
+    inc = init_weights_(InceptionV3Pool3(), torch.Generator().manual_seed(
+        2)).to(VAE_DEV).eval()
+    alex = _random_alex(torch, 3)
+    kernels.reset_launches()
+    gen_metrics.inception_features(inc, samples[:EVAL_BATCH, 0],
+                                   EVAL_BATCH)            # warm-up
+    gen_metrics.lpips(alex[0], alex[1], reals[:EVAL_BATCH],
+                      reals[:EVAL_BATCH], EVAL_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = [gen_metrics.inception_features(inc, x, EVAL_BATCH)
+             for x in (samples[:, 0], reals)]
+    t_inc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp = gen_metrics.lpips(alex[0], alex[1], samples[:, 0], reals,
+                           EVAL_BATCH)
+    t_lpips = time.perf_counter() - t0
+    frechet = gen_metrics.fid_from_features
+    t_fid = []
+
+    def timed_frechet(*args):
+        t = time.perf_counter()
+        got = frechet(*args)
+        t_fid.append(time.perf_counter() - t)
+        return got
+    gen_metrics.fid_from_features = timed_frechet
+    t0 = time.perf_counter()
+    try:
+        scores = evaluate_samples(samples, reals, inception=inc, alex=alex)
+    finally:
+        gen_metrics.fid_from_features = frechet
+    t_eval = time.perf_counter() - t0
+    launches = _launches_zero(kernels, "evaluate_samples")
+    check(math.isfinite(scores["fid"]) and math.isfinite(scores["lpips"])
+          and abs(scores["lpips"] - float(np.mean(lp))) <= 1e-6 *
+          abs(scores["lpips"]) and np.isfinite(feats[0]).all(),
+          f"evaluate_samples: {scores}")
+    batches = 2 * EVAL_SAMPLES // EVAL_BATCH
+    return {"samples": EVAL_SAMPLES, "batch": EVAL_BATCH,
+            "inception_s_per_batch": t_inc / batches,
+            "lpips_s_per_batch": t_lpips / (EVAL_SAMPLES // EVAL_BATCH),
+            "frechet_host_s": t_fid[0], "evaluate_samples_s": t_eval,
+            "fid_random_weights": scores["fid"],
+            "lpips_random_weights": scores["lpips"], "launches": launches}
+
+
+def _vae_small_card_vs_cpu(torch) -> dict:
+    """(e) one ``soft_intro_step`` at smoke width (32^2, decoder ngf 4,
+    the full-width encoder, f32, TF32 off) on the card and on the CPU from
+    the same weights and draws: each loss's relative gap, and the largest
+    gap of the updated parameters over the largest parameter."""
+    from semantic_segmentation_torch.models.vae.sivae import SoftIntroVAE
+    from semantic_segmentation_torch.train import train_vae
+    gen = torch.Generator().manual_seed(4)
+    a = (torch.rand(2, 1, 32, 32, generator=gen) > 0.5).float().repeat(
+        1, 3, 1, 1)
+    b = torch.rand(2, 3, 32, 32, generator=gen) * 2 - 1
+    draws = train_vae.draw_soft_intro(2, 8, gen)
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", VAE_DEV):
+            vae = SoftIntroVAE(8, 3, 4, "unet_32", device=dev,
+                               generator=torch.Generator().manual_seed(5))
+            trainer = train_vae.SIVAETrainer(vae, train_vae.SIVAEParams(),
+                                             32)
+            m = trainer.soft_intro_step(
+                a.to(dev), b.to(dev), {k: v.to(dev) for k, v in
+                                       draws.items()})
+            out[dev] = ({k: float(v) for k, v in m.items()},
+                        {k: v.detach().cpu() for k, v in
+                         vae.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    (m_gpu, w_gpu), (m_cpu, w_cpu) = out[VAE_DEV], out["cpu"]
+    loss_gaps = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    top = max(float(v.abs().max()) for v in w_cpu.values())
+    w_gap = max(float((w_gpu[k] - w_cpu[k]).abs().max())
+                for k in w_cpu) / top
+    # lossE and the metrics of the encoder step read the start state:
+    # one step of each device's rounding. lossD reads the encoder after
+    # its Adam step, whose first step moves every weight by lr in the
+    # sign of its gradient, which rounding decides where the gradient is
+    # noise (1.7e-4 apart on the card's first run)
+    check(all(math.isfinite(v) for v in m_gpu.values()) and
+          max(v for k, v in loss_gaps.items() if k != "lossD") <= 1e-5
+          and loss_gaps["lossD"] <= 1e-3,
+          f"sivae small: card against CPU losses {m_gpu} {m_cpu}")
+    return {"loss_gaps": loss_gaps, "state_gap_of_largest": w_gap,
+            "losses_card": m_gpu, "losses_cpu": m_cpu}
+
+
+def phase_vae(torch, flagship: dict) -> dict:
+    """Phase 7g: the soft-intro VAE family on the card. Returns {label:
+    stats}."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(RUNVAE, ignore_errors=True)
+    out = {}
+    a = _vae_train(torch)
+    out["train_vae"] = a["mse"]
+    out["train_vae_vgg"] = a["vgg"]
+    for label, s in a.items():
+        ph = s["phases"]
+        print(f"[train_vae {label}] " + "; ".join(
+            f"{name} {p['steps']} steps, steady "
+            + (f"{p['steady_steps_per_s']:.2f} steps/s"
+               if p["steady_steps_per_s"] else "n/a")
+            + f" (first step {p['first_step_seconds']:.2f} s)"
+            for name, p in ph.items())
+            + f"; peak {s['peak_mem_bytes']} bytes; checkpoint "
+            f"{s['checkpoint_bytes']} bytes written in "
+            f"{s['checkpoint_write_s']:.3f} s")
+    out["end2end_sivae"] = b = _sivae_e2e(
+        torch, [f"--engine.valid_step={SIVAE_ITERS // 2}"], SIVAE_ITERS,
+        "end2end_sivae")
+    print(f"[end2end_sivae] decay_only: steady {b['steady_it_per_s']:.2f} "
+          f"it/s ({b['steady_iter_ms']:.1f} ms an iteration), peak "
+          f"{b['peak_mem_bytes']} bytes, launches {b['launches']}, test "
+          f"Dice {b['test_dice']:.4f}; the U-Net flagship (phase 7) "
+          f"{flagship['steady_it_per_s']:.2f} it/s")
+    out["end2end_sivae_darts"] = d = _sivae_e2e(
+        torch, ["--engine.hypergrad=darts", "--run.name=end2end-sivae-darts",
+                f"--engine.valid_step={SIVAE_DARTS_ITERS}"],
+        SIVAE_DARTS_ITERS, "end2end_sivae darts")
+    print(f"[end2end_sivae darts] {SIVAE_DARTS_ITERS} iterations, "
+          f"arch_grad_norm {d['arch_grad_norm']}, launches "
+          f"{d['launches']}")
+    out["inference_vae"] = c = _vae_inference(
+        torch, str(Path(a["mse"]["checkpoint"]).parent))
+    print(f"[inference_vae] {c['images']} images x {c['styles']} styles, "
+          f"{c['seconds_per_image']:.3f} s an image (LPIPS-alex, random "
+          "weights)")
+    out["vae_eval_metrics"] = e = _vae_eval_metrics(torch)
+    print(f"[evaluate_samples] pool3 features "
+          f"{e['inception_s_per_batch']:.3f} s, LPIPS-alex "
+          f"{e['lpips_s_per_batch']:.3f} s per batch of {EVAL_BATCH}; the "
+          f"Frechet distance {e['frechet_host_s']:.2f} s on the host; "
+          f"evaluate_samples whole {e['evaluate_samples_s']:.2f} s")
+    out["sivae_small"] = g = _vae_small_card_vs_cpu(torch)
+    print(f"[sivae small] one soft_intro_step, card against CPU: losses "
+          f"{ {k: f'{v:.1e}' for k, v in g['loss_gaps'].items()} }, "
+          f"updated state {g['state_gap_of_largest']:.1e} of the largest")
+    out["vae_phase"] = {"wall_s": time.perf_counter() - t_phase}
+    print(f"[vae] phase 7g took {out['vae_phase']['wall_s']:.1f} s")
+    return out
+
+
 class _ByteCounter:
     """A write-only stream that counts the bytes written into it."""
 
@@ -2567,6 +2911,16 @@ def main() -> int:
         print(f"[{label}] {card}: " + json.dumps(stats))
         if "launches" in stats:
             paths[label] = stats["launches"]
+
+    # 7g. the soft-intro VAE family: train_vae (mse and vgg),
+    # end2end_sivae (decay_only and darts), inference_vae, FID and LPIPS
+    # through evaluate_samples, and the small case card against CPU
+    for label, stats in phase_vae(torch,
+                                  trainer_stats["end2end_trainer"]).items():
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        if "launches" in stats:
+            paths[label] = stats["launches"]
+    torch.cuda.empty_cache()
 
     # 8. timing and the benchmark paths, in a fresh process
     records, bench_paths = run_timing_child()

@@ -157,6 +157,9 @@ class RunConfig:
     device: str = "cuda"             # entry points run here; 'cpu' on request
     spatial_axis: int = 1            # 3D spatial-parallel mesh size; only
                                      # 1 (off) is ported
+    amp: bool = True                 # kept for CLI familiarity (a no-op,
+                                     # as in the JAX package: the compute
+                                     # dtype is model.compute_dtype)
 
 
 @dataclass
@@ -226,11 +229,21 @@ PRESETS: dict[str, dict[str, Any]] = {
     "end2end_bbdm": {"optim.loss_lambda": 0.0,
                      "engine.hypergrad": "decay_only",
                      "run.name": "end2end-bbdm"},
+    # Soft-intro_VAE regime (ISIC-style splits)
+    "sivae": {"data.dataset": "isic", "data.n_train": 32, "data.n_val": 8,
+              "data.n_test": 594, "run.name": "sivae"},
+    # the same structural zero as the other bilevel programs
+    "end2end_sivae": {"data.dataset": "isic", "data.n_train": 32,
+                      "data.n_val": 8, "data.n_test": 594,
+                      "engine.hypergrad": "decay_only",
+                      "run.name": "end2end-sivae"},
 }
 
 # options of the JAX package's config that the port refuses as unknown,
 # and the ROADMAP.md section 1 item that ports each
-NOT_PORTED = {"run.data_axis": 13}
+NOT_PORTED = {"run.data_axis": 13, "run.multihost": 13,
+              "run.coordinator": 13, "run.num_processes": 13,
+              "run.process_id": 13}
 
 
 def _set_by_path(cfg: Config, path: str, raw: str | Any):

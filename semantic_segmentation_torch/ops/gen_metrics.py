@@ -1,10 +1,23 @@
-"""Generative-quality evaluation — the port of the volume metrics of
-``semantic_segmentation_tpu/ops/gen_metrics.py``
-(``GenSeg-3D/util/evaluation.py``): masked MAE / MSE / PSNR and a windowed
-SSIM between generated and real volumes, written to CSV (the reference
-writes an Excel sheet); and BBDM's sample diversity
-(``BBDM/evaluation/diversity.py``). numpy, identical to the JAX package's.
-FID and LPIPS come with ROADMAP.md section 1, item 12.
+"""Generative-quality evaluation — the port of
+``semantic_segmentation_tpu/ops/gen_metrics.py``:
+
+- FID (``BBDM/evaluation/FID.py``): the Frechet distance between Gaussian
+  fits of two feature sets (``frechet_distance``, ``fid_from_features``,
+  numpy and scipy, identical to the JAX package's and to
+  pytorch_fid.fid_score), on the pool3 features of the port's
+  ``models/extractors.InceptionV3Pool3`` (``inception_features``,
+  ``fid``);
+- LPIPS (``BBDM/evaluation/LPIPS.py``): ``lpips`` on the port's
+  ``AlexNetFeatures`` with its learned linear weights, and
+  ``lpips_distance``, the numpy form over any extractor's features;
+- BBDM's sample diversity (``BBDM/evaluation/diversity.py``);
+- the volume metrics (``GenSeg-3D/util/evaluation.py``): masked MAE / MSE /
+  PSNR and a windowed SSIM, written to CSV (the reference writes an Excel
+  sheet).
+
+The feature nets' real weights (``utils/torch_port.port_inception_v3``,
+``port_alexnet_lpips``) are not in the repository: with random weights
+FID and LPIPS run and their values mean nothing.
 """
 
 from __future__ import annotations
@@ -12,6 +25,86 @@ from __future__ import annotations
 import csv
 
 import numpy as np
+import torch
+
+
+def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6):
+    """d^2 = |mu1 - mu2|^2 + Tr(S1 + S2 - 2 sqrt(S1 S2)) (pytorch_fid)."""
+    from scipy import linalg
+    diff = mu1 - mu2
+    covmean = linalg.sqrtm(sigma1 @ sigma2)
+    if not np.isfinite(covmean).all():
+        offset = np.eye(sigma1.shape[0]) * eps
+        covmean = linalg.sqrtm((sigma1 + offset) @ (sigma2 + offset))
+    if np.iscomplexobj(covmean):
+        covmean = covmean.real
+    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
+                 - 2.0 * np.trace(covmean))
+
+
+def fid_from_features(feats_a: np.ndarray, feats_b: np.ndarray):
+    mu1, s1 = feats_a.mean(0), np.cov(feats_a, rowvar=False)
+    mu2, s2 = feats_b.mean(0), np.cov(feats_b, rowvar=False)
+    return frechet_distance(mu1, s1, mu2, s2)
+
+
+def lpips_distance(feats_a: list, feats_b: list,
+                   lin_weights: list | None = None):
+    """Sum over layers of mean((w * (norm(fa) - norm(fb)))^2). ``feats_*``
+    are lists of (N, H, W, C) layer activations; ``lin_weights`` the
+    learned per-channel weights, else uniform."""
+    total = 0.0
+    for li, (fa, fb) in enumerate(zip(feats_a, feats_b)):
+        na = fa / (np.linalg.norm(fa, axis=-1, keepdims=True) + 1e-10)
+        nb = fb / (np.linalg.norm(fb, axis=-1, keepdims=True) + 1e-10)
+        d = (na - nb) ** 2
+        if lin_weights is not None:
+            d = d * lin_weights[li].reshape(1, 1, 1, -1)
+        total += d.sum(axis=-1).mean(axis=(1, 2))
+    return total
+
+
+def _device_of(net: torch.nn.Module):
+    return next(net.parameters()).device
+
+
+@torch.no_grad()
+def inception_features(inception, images: np.ndarray,
+                       batch_size: int = 16) -> np.ndarray:
+    """pool3 features (N, 2048) of NHWC ``images`` in [0, 1], through the
+    port's ``InceptionV3Pool3`` ``inception`` on its device, in float32,
+    ``batch_size`` images a call."""
+    dev = _device_of(inception)
+    out = [inception(torch.as_tensor(np.asarray(
+               images[i:i + batch_size], np.float32), device=dev)).cpu()
+           for i in range(0, len(images), batch_size)]
+    return torch.cat(out).numpy()
+
+
+def fid(inception, images_a: np.ndarray, images_b: np.ndarray,
+        batch_size: int = 16) -> float:
+    """FID between two NHWC [0, 1] image sets (pytorch_fid.fid_score,
+    ``BBDM/evaluation/FID.py:11-17``)."""
+    fa = inception_features(inception, images_a, batch_size)
+    fb = inception_features(inception, images_b, batch_size)
+    return fid_from_features(fa, fb)
+
+
+@torch.no_grad()
+def lpips(alex, lin_weights, images_a, images_b,
+          batch_size: int = 16) -> np.ndarray:
+    """LPIPS(alex) per pair (``BBDM/evaluation/LPIPS.py:10-30``) through
+    the port's ``AlexNetFeatures`` ``alex`` on its device: NHWC inputs in
+    [0, 1], ``batch_size`` pairs a call. Returns (N,)."""
+    from semantic_segmentation_torch.models.extractors import lpips_alex
+    dev = _device_of(alex)
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    out = [lpips_alex(alex, lin_weights, put(images_a[i:i + batch_size]),
+                      put(images_b[i:i + batch_size])).cpu()
+           for i in range(0, len(images_a), batch_size)]
+    return torch.cat(out).numpy()
 
 
 def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0,

@@ -389,16 +389,22 @@ def sample_to_eval(model: BBDMModel, data, batch_size: int, out_dir: str,
 
 
 def evaluate_samples(samples: np.ndarray, reals: np.ndarray,
-                     inception_vars=None, alex=None) -> dict:
-    """The BBDM/evaluation scores of ``sample_to_eval``'s output: the
-    diversity. FID (``inception_vars``) and LPIPS (``alex``) need the
-    feature nets of ROADMAP.md section 1 item 12 and raise."""
-    del reals
-    if inception_vars is not None or alex is not None:
-        raise NotImplementedError(
-            "FID and LPIPS come with ROADMAP.md section 1, item 12 (the "
-            "generative metrics and their feature nets)")
-    return {"diversity": gen_metrics.sample_diversity(samples)}
+                     inception=None, alex=None) -> dict:
+    """The BBDM/evaluation scores (FID.py, LPIPS.py, diversity.py) of
+    ``sample_to_eval``'s output: ``samples`` (N, n_per_cond, H, W, C),
+    ``reals`` (N, H, W, C), both in [0, 1]. The diversity always; FID
+    between the first samples and the reals with ``inception`` (the port's
+    ``InceptionV3Pool3`` on its device), their mean LPIPS with ``alex``
+    ((``AlexNetFeatures``, its five lin weights)); the real weights map
+    with ``utils/torch_port.port_inception_v3`` / ``port_alexnet_lpips``."""
+    out = {"diversity": gen_metrics.sample_diversity(samples)}
+    flat = samples[:, 0]
+    if inception is not None:
+        out["fid"] = gen_metrics.fid(inception, flat, reals)
+    if alex is not None:
+        out["lpips"] = float(np.mean(gen_metrics.lpips(alex[0], alex[1],
+                                                       flat, reals)))
+    return out
 
 
 def sample_eval(cfg: Config, model: BBDMModel | None = None,

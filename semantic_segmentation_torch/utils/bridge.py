@@ -137,3 +137,17 @@ def arch_to_torch(arch: dict, device=None) -> dict:
 
 def arch_to_flax(arch: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in arch.items()}
+
+
+def load_sivae_flax(vae: nn.Module, variables: dict):
+    """Load the JAX package's ``SoftIntroVAE`` variables ({'enc': {'params',
+    'batch_stats'}, 'dec': {'params'[, 'batch_stats']}, 'arch'}, numpy)
+    into the port's ``models/vae/sivae.SoftIntroVAE``: the encoder, the
+    decoder and the arch table."""
+    for part, net in (("enc", vae.encoder), ("dec", vae.decoder)):
+        v = variables[part]
+        load_flax(net, v["params"], v.get("batch_stats", {}))
+    with torch.no_grad():
+        vae.arch.copy_(torch.from_numpy(np.asarray(variables["arch"],
+                                                   np.float32)))
+    return vae

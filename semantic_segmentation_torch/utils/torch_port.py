@@ -19,7 +19,14 @@ whole or partial, onto a fresh net:
 - ``vit``/``swin``/``swin_unet``: a timm/microsoft ``swin_tiny`` checkpoint,
   its encoder also copied into the mirrored decoder stages (the reference's
   ``load_from``);
-- ``unet``: a milesial U-Net, transposed-conv or bilinear layout.
+- ``unet``: a milesial U-Net, transposed-conv or bilinear layout;
+
+and from the feature nets' upstream checkpoints (``utils/torch_port.py``
+:56-84 and :232-283 of the JAX package) onto ``models/vgg.py`` and
+``models/extractors.py``: torchvision's ``vgg16().features``
+(``port_vgg16_features``), the LPIPS linear layers (``port_vgg_lpips``,
+and with torchvision's ``alexnet`` ``port_alexnet_lpips``) and
+pytorch-fid's InceptionV3 (``port_inception_v3``).
 """
 
 from __future__ import annotations
@@ -236,6 +243,78 @@ def load_milesial(net: torch.nn.Module, sd: dict):
                          f"model.bilinear={net.bilinear}")
     net.load_state_dict(port_unet_milesial(sd))
     return net
+
+
+# torchvision vgg16().features' conv indices up to relu5_3
+VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+# torchvision alexnet().features' conv indices
+ALEX_CONVS = (0, 3, 6, 8, 10)
+
+
+def _features_key(sd: dict, index: int, leaf: str) -> str:
+    """``features.<index>.<leaf>``, or the bare ``<index>.<leaf>`` of a
+    saved ``features`` Sequential."""
+    key = f"features.{index}.{leaf}"
+    return key if key in sd else f"{index}.{leaf}"
+
+
+def port_vgg16_features(sd: dict) -> dict:
+    """torchvision ``vgg16()`` (or its ``features``) -> ``VGG16Features``
+    (``conv0`` ... ``conv12``)."""
+    return _take(sd, {_features_key(sd, ti, leaf): f"conv{i}.{leaf}"
+                      for i, ti in enumerate(VGG16_CONVS)
+                      for leaf in ("weight", "bias")})
+
+
+def _lpips_lins(sd_lpips: dict, widths) -> list:
+    """The lpips checkpoint's five linear layers (``lin{i}.model.1.weight``
+    or ``lins.{i}.model.1.weight``, (1, C, 1, 1)) as per-channel float32
+    vectors."""
+    lins = []
+    for i, w in enumerate(widths):
+        key = f"lin{i}.model.1.weight"
+        if key not in sd_lpips:
+            key = f"lins.{i}.model.1.weight"
+        lin = torch.as_tensor(sd_lpips[key]).float().reshape(-1)
+        if lin.numel() != w:
+            raise ValueError(f"{key}: {lin.numel()} channels, expected {w}")
+        lins.append(lin)
+    return lins
+
+
+def port_vgg_lpips(sd_lpips: dict) -> list:
+    """taming's LPIPS(vgg) checkpoint -> the five per-channel weights of
+    ``models/vgg.vgg_lpips`` (64/128/256/512/512)."""
+    return _lpips_lins(sd_lpips, (64, 128, 256, 512, 512))
+
+
+def port_alexnet_lpips(sd_alex: dict, sd_lpips: dict | None = None):
+    """torchvision ``alexnet`` -> ``AlexNetFeatures`` (``conv0`` ...
+    ``conv4``), and the lpips 'alex' checkpoint -> its five per-channel
+    weights (without one, uniform 1 / C, as the JAX package's fallback).
+    Returns (ported, lins)."""
+    from semantic_segmentation_torch.models.extractors import ALEX_WIDTHS
+    ported = _take(sd_alex, {f"features.{ti}.{leaf}": f"conv{i}.{leaf}"
+                             for i, ti in enumerate(ALEX_CONVS)
+                             for leaf in ("weight", "bias")})
+    if sd_lpips is None:
+        lins = [torch.full((w,), 1.0 / w) for w in ALEX_WIDTHS]
+    else:
+        lins = _lpips_lins(sd_lpips, ALEX_WIDTHS)
+    return ported, lins
+
+
+def port_inception_v3(sd: dict) -> dict:
+    """pytorch-fid's (or torchvision's) ``inception_v3`` ->
+    ``InceptionV3Pool3``: the names are the checkpoint's, so every
+    ``*.conv.weight`` and ``*.bn.{weight,bias,running_mean,running_var}``
+    is kept; ``fc``, ``AuxLogits`` and BN's ``num_batches_tracked`` have
+    no counterpart in the pool3 head."""
+    sd = _strip_module(sd)
+    keep = ("conv.weight",) + tuple(f"bn.{leaf}" for leaf in _BN)
+    return _take(sd, {k: k for k in sd
+                      if not k.startswith(("fc.", "AuxLogits."))
+                      and k.endswith(keep)})
 
 
 def overlay(net: torch.nn.Module, ported: dict):

@@ -1,8 +1,10 @@
-"""Image grids — the port of ``tensor2im``, ``save_image_grid`` and
-``save_image_raw`` of ``semantic_segmentation_tpu/utils/visuals.py``
-(``util/util.py:9-103``): the BBDM sample grids and validation panels as
-PNG files, numpy and PIL (imported where a file is written). The static
-HTML report comes with ``test_pix2pix`` (ROADMAP.md section 1, item 12).
+"""Images and image grids — the port of ``tensor2im``, ``save_image``,
+``save_image_grid`` and ``save_image_raw`` of
+``semantic_segmentation_tpu/utils/visuals.py`` (``util/util.py:9-103``):
+the BBDM sample grids, the validation panels and the soft-intro VAE's
+inference images as PNG files, numpy and PIL (imported where a file is
+written). The static HTML report comes with ``test_pix2pix`` (ROADMAP.md
+section 1, item 12).
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ def tensor2im(arr, scale_tanh: bool = True) -> np.ndarray:
     if a.shape[-1] == 1:
         a = a[..., 0]
     return a
+
+
+def save_image(arr, path: str):
+    """One (H, W, C) float image as a PNG (``tensor2im``'s mapping)."""
+    save_image_raw(tensor2im(arr), path)
 
 
 def save_image_grid(arrs, path: str, cols: int = 4):

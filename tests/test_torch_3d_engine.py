@@ -81,7 +81,17 @@ def _native_cpu_conv3d():
         yield
 
 
+_START = {}
+
+
 def _jax_engine(mode):
+    """The JAX engine of ``mode`` and a fresh copy of the start state (the
+    engine donates it). The start state does not depend on the mode, so
+    it is built once for the file: flax's eager init of the three nets
+    takes 95 s a call on the CPU, and the file needs it three times. It
+    stays eager: a jitted init rounds apart from it, and the three
+    free-running iterations' ``loss_unet`` then parts from JAX's by
+    1.6e-4 relative, beyond this file's bar."""
     jcfg = jparse(ARGV + [f"--engine.hypergrad={mode}"])
     model = JGenSeg3D(jcfg, num_downs=ND)
     problems, outer = model.build_problems()
@@ -89,7 +99,10 @@ def _jax_engine(mode):
                             jadam(jcfg.optim.arch_lr, 0.5,
                                   weight_decay=jcfg.optim.arch_weight_decay),
                             hypergrad=mode)
-    return engine, model.init_state(engine, jax.random.key(0), CROP)
+    if "state" not in _START:
+        _START["state"] = jax.device_get(
+            model.init_state(engine, jax.random.key(0), CROP))
+    return engine, jax.tree.map(jnp.array, _START["state"])
 
 
 def _port_engine(mode, state):

@@ -178,7 +178,7 @@ def test_mixed_conv(nsp):
         size=(2,) + (size,) * nsp + (3,)).astype(np.float32)
     arch = np.array([0.3, -0.5, 0.9], np.float32)
     jm = _JMixedConvNet(5, nsp)
-    variables = jm.init(jax.random.key(nsp), jnp.asarray(x), arch)
+    variables = jax.jit(jm.init)(jax.random.key(nsp), jnp.asarray(x), arch)
     # non-zero biases, so their mixture is checked too
     variables = jax.tree.map(lambda v: v + 0.1 if v.ndim == 1 else v,
                              variables)
@@ -232,7 +232,7 @@ def test_generator3d(upsampling, norm):
         np.float32)
     arch = _arch(nd)
     jg = JG3(1, nd, ngf, upsampling, False, norm, dtype=jnp.float32)
-    variables = jg.init(jax.random.key(0), jnp.asarray(x), arch)
+    variables = jax.jit(jg.init)(jax.random.key(0), jnp.asarray(x), arch)
     if norm == "instance":
         assert "batch_stats" not in variables
     tg = UnetGenerator3D(1, 1, nd, ngf, upsampling, False, norm)
@@ -256,7 +256,7 @@ def test_discriminator3d(norm):
     of it from the JAX package's). D's f32 path is held in the engine and
     trainer tests."""
     x = np.random.default_rng(2).normal(size=(2, 32, 32, 32, 2))
-    v32 = JD3(4, 3, norm, dtype=jnp.float32).init(
+    v32 = jax.jit(JD3(4, 3, norm, dtype=jnp.float32).init)(
         jax.random.key(1), jnp.asarray(x, jnp.float32))
     td = NLayerDiscriminator3D(2, 4, 3, norm)
     assert td(_to_torch(x.astype(np.float32))).shape == (2, 1, 2, 2, 2)

@@ -113,8 +113,8 @@ def test_unet3d_with_shared_bn():
     within 2.4e-6; the two f32 train forwards part by 1.1e-5."""
     x = np.random.default_rng(3).normal(size=(2, 16, 16, 16, 1))
     make_j = lambda dt: JUNet3D(1, 2, (4, 8, 16), 32, dtype=dt)  # noqa: E731
-    v32 = make_j(jnp.float32).init(jax.random.key(2),
-                                   jnp.asarray(x, jnp.float32))
+    v32 = jax.jit(make_j(jnp.float32).init)(jax.random.key(2),
+                                            jnp.asarray(x, jnp.float32))
     tu = UNet3D(1, 2, (4, 8, 16), 32)
     # the shared BN: one module, so one set of statistics folded twice
     assert "bn1" not in dict(tu.s_block1.named_children())

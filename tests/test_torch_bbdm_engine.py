@@ -55,11 +55,24 @@ ARGV = ["--data.synthetic=true", f"--data.image_size={SIZE}",
         "--model.compute_dtype=float32", "--model.base_features=4"]
 
 
+_STARTS = {}
+
+
 def _jax_start(loss_lambda: float):
-    """The JAX config, engine and a start state: the denoiser's non-zero
-    weights, the port's fresh U-Net (weights and BN statistics) in the JAX
-    layout (a JAX init of the nets costs seconds of compile), fresh
-    optimizer states."""
+    """The JAX config, engine and a fresh copy of a start state (the engine
+    donates it): the denoiser's non-zero weights, the port's fresh U-Net
+    (weights and BN statistics) in the JAX layout (a JAX init of the nets
+    costs seconds of compile), fresh optimizer states. Built once per
+    ``loss_lambda`` for the file: the darts test starts where the
+    ``loss_lambda`` 1 iterations do."""
+    if loss_lambda not in _STARTS:
+        jcfg, engine, state = _build_jax_start(loss_lambda)
+        _STARTS[loss_lambda] = (jcfg, engine, jax.device_get(state))
+    jcfg, engine, host = _STARTS[loss_lambda]
+    return jcfg, engine, jax.tree.map(jnp.array, host)
+
+
+def _build_jax_start(loss_lambda: float):
     jcfg = jparse(ARGV + [f"--optim.loss_lambda={loss_lambda}"],
                   preset="end2end_bbdm")
     jm, bstate = jax_model_and_state()

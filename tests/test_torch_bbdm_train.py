@@ -200,9 +200,16 @@ def test_resume_mid_epoch_and_sample_eval(tmp_path):
     assert scores == {"diversity": jdiversity(samples)}
     assert sorted(p.name for p in (run / "sample_to_eval").iterdir()) == \
         ["cond0.png", "cond1.png"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_bbdm.evaluate_samples(samples, samples[:, 0],
-                                    inception_vars={})
+    # FID and LPIPS score once given the feature nets (random weights
+    # here; tests/test_torch_feature_nets.py holds them against JAX)
+    from semantic_segmentation_torch.models.extractors import \
+        AlexNetFeatures
+    big = np.repeat(np.repeat(samples, 8, axis=2), 8, axis=3)
+    alex = (AlexNetFeatures(), [torch.ones(w) for w in (64, 192, 384, 256,
+                                                        256)])
+    scores = train_bbdm.evaluate_samples(big, big[:, 0], alex=alex)
+    assert scores["lpips"] == 0.0
+    assert scores["diversity"] == jdiversity(big)
 
 
 @pytest.mark.parametrize("entry", [train_bbdm, train_end2end_bbdm])

@@ -224,8 +224,8 @@ def test_init_laws_match_jax(kind):
     one."""
     jnet, tnet = _nets(kind, 3, 2, (2, 1, 1, 1) if kind == "v3"
                        else (2, 1, 1))
-    v = jax.device_get(jnet.init(jax.random.key(1),
-                                 jnp.zeros((1, 32, 32, 3)), train=False))
+    v = jax.device_get(jax.jit(lambda k, x: jnet.init(k, x, train=False))(
+        jax.random.key(1), jnp.zeros((1, 32, 32, 3))))
     port, _ = state_dict_to_flax(tnet, tnet.state_dict())
     flat_j = dict(jax.tree_util.tree_flatten_with_path(v["params"])[0])
     flat_t = dict(jax.tree_util.tree_flatten_with_path(port)[0])

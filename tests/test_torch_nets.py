@@ -126,7 +126,7 @@ def test_generator_unet64_with_dropout():
     arch = init_arch_params(jax.random.key(1))["upconv"] * 300.0  # non-flat mix
     x = np.random.default_rng(0).normal(size=(2, size, size, 1)).astype(
         np.float32)
-    variables = jg.init(jax.random.key(0), jnp.asarray(x), arch)
+    variables = jax.jit(jg.init)(jax.random.key(0), jnp.asarray(x), arch)
     rng = jax.random.key(5)
     masks = _dropout_masks(jg, variables, jnp.asarray(x), arch, rng=rng)
     assert set(masks) == {4}          # 4 <= d <= nd-2 with nd = 6
@@ -141,7 +141,7 @@ def test_patchgan():
     jd = jdefine_D("basic", 4, 3, "batch", jnp.float32)
     x = np.random.default_rng(1).normal(size=(2, 64, 64, 2)).astype(
         np.float32)
-    variables = jd.init(jax.random.key(2), jnp.asarray(x))
+    variables = jax.jit(jd.init)(jax.random.key(2), jnp.asarray(x))
     _check_net(jd, variables, define_D(2, "basic", 4), jnp.asarray(x))
 
 
@@ -149,7 +149,7 @@ def test_unet():
     ju = JUNet(1, 1, base_features=4, dtype=jnp.float32)
     x = np.random.default_rng(2).normal(size=(2, 32, 32, 1)).astype(
         np.float32)
-    variables = ju.init(jax.random.key(3), jnp.asarray(x))
+    variables = jax.jit(ju.init)(jax.random.key(3), jnp.asarray(x))
     _check_net(ju, variables, UNet(1, 1, 4), jnp.asarray(x))
 
 
@@ -157,7 +157,7 @@ def test_unet_bilinear():
     ju = JUNet(1, 1, bilinear=True, base_features=8, dtype=jnp.float32)
     x = np.random.default_rng(4).normal(size=(2, 32, 32, 1)).astype(
         np.float32)
-    variables = ju.init(jax.random.key(4), jnp.asarray(x))
+    variables = jax.jit(ju.init)(jax.random.key(4), jnp.asarray(x))
     _check_net(ju, variables, UNet(1, 1, 8, bilinear=True), jnp.asarray(x))
 
 
