@@ -53,9 +53,15 @@ Phases, each of which stops the script with a nonzero exit on failure:
    per iteration; the hypergradient exactly 0 on every chunk) and the
    end2end_nas preset (``unroll``, ``minmax``, live fakes: the warp three
    times per iteration with the surrogate's, the equalize never; the
-   hypergradient finite and > 0 on every chunk); finite losses, best_val
-   and test Dice produced, the histogram and the down-conv never launched,
-   and steady it/s and peak memory printed for each;
+   hypergradient finite and > 0 on every chunk); in each, one more warp
+   launch for each validation panel (G on the augmented first validation
+   mask, written where the trainer steps the plateau: at every chunk
+   boundary that crosses a multiple of the train split's size, counted as
+   the trainer decides it, ``flagship_panels``; two in 20 iterations at 7
+   train items, and in every flagship-family run below likewise); finite
+   losses, best_val and test Dice produced, the histogram and the
+   down-conv never launched, and steady it/s and peak memory printed for
+   each;
 7b. the real-data path at the same full width from the same checkpoint:
    PNG folders written under build/ from ``SyntheticSegDataset`` arrays (a
    JSRT layout of 16 pairs at 300^2, so that the loader resizes, and an
@@ -129,10 +135,11 @@ Phases, each of which stops the script with a nonzero exit on failure:
    ``train_end2end_3d.train`` of the ``end2end_3d`` preset (``decay_only``)
    for 20 iterations, valid_step 10, on synthetic volumes (finite losses
    and val Dice; steady it/s and peak beside phase 7's); (b) 3 engine
-   iterations of ``decay_only`` twice (the run-to-run spread) and of the
-   reference's ``darts`` from the same seed: the darts hypergradient
+   iterations of ``decay_only`` and of the reference's ``darts``, each
+   twice from the same seed (the run-to-run spread): the darts hypergradient
    exactly 0, and darts' G, D, U-Net and arch equal to decay_only's bit
-   for bit if the two decay_only runs are, else within 4x their spread;
+   for bit if each mode's two runs are, else within 4x the larger of the
+   two modes' run-to-run spreads;
    (c) 10 iterations from a NIfTI folder written under build/ (12 int16
    volumes of 72x80x60 with scl_slope 2 and truths: CropOrPad crops two
    axes and pads one), the test Dice printed; (d) ``train_pix2pix_3d`` for
@@ -147,10 +154,10 @@ Phases, each of which stops the script with a nonzero exit on failure:
    sampler): (a) ``train_bbdm`` of the ``bbdm`` preset at batch 8 for 10
    steps, validation every 5 (finite losses, steady steps/s, the peak;
    the final latest checkpoint, the whole trainer state, is written to
-   disk, and the top-k checkpoints and the two weight files are
-   serialized whole but streamed into a byte counter, their bytes and
-   seconds printed: the H100 host this script was measured on caps a
-   run's disk writes at 45 GiB, and one such run writes 87 GB); (b)
+   disk, and of the top-k checkpoints and the two weight files only
+   their tensors' bytes are counted (``CountedSaves``): the H100 host
+   this script was measured on caps a run's disk writes at 45 GiB, and
+   one such run writes 87 GB); (b)
    ``run.sample_only``'s ``sample_eval``, which builds a fresh model and
    restores (a)'s latest checkpoint from disk (its metric record carries
    (a)'s last step), over two test conditions, two samples each (the
@@ -159,7 +166,7 @@ Phases, each of which stops the script with a nonzero exit on failure:
    (c) ``train_end2end_bbdm`` of the ``end2end_bbdm`` preset
    (``loss_lambda`` 0, ``decay_only``, U-Net base 64) for 10 iterations,
    validation every 5 (it/s, the peak, a panel per validation, no kernel
-   launched); (d) two engine iterations with ``--optim.loss_lambda=1.0``
+   launched); (d) one engine iteration with ``--optim.loss_lambda=1.0``
    (the fake branch: the warp, then a 200-step sampling at batch 2 inside
    the U-Net's step; one warp launch an iteration) and one with the
    photometric chain (one warp and one equalize); (e) one ``darts``
@@ -195,6 +202,40 @@ Phases, each of which stops the script with a nonzero exit on failure:
    whose signs rounding decides where a gradient is noise) within 1e-3,
    and the updated state's gap to the largest value printed. No kernel launches
    in (a), (c), (d). The phase prints its wall time;
+7h. the rest of the pix2pix family at full width (256^2, batch 2,
+   unet_256, ngf = ndf = 64, bf16): (a) ``test_pix2pix.run`` from phase
+   6's checkpoint over phase 7b's JSRT-layout folder: ``index.html`` with
+   one row of three images per item, the seconds an image; (b) stage 1
+   under ``--optim.gan_mode=wgangp`` for 5 steps on synthetic data, a
+   sample grid every step: finite losses, the five grids written; (c)
+   ``--preset=pix2pix_colorization`` (L -> ab, 1 -> 2 channels) for 10
+   steps from a folder of 16 RGB PNGs written under build/ (steps/s and
+   the peak), then ``test_pix2pix`` on its checkpoint through the L/ab
+   branch (RGB fakes in the report); (d) phase 6's G and D written as the
+   JAX package's ``.msgpack`` pair (``utils/serialization.save_pytree``
+   over ``utils/bridge.state_dict_to_flax``) and loaded into a fresh
+   ``Pix2Pix`` on the card by ``load_model``: G's output identical to the
+   saved model's on the same input. No kernel launches in 7h;
+7i. latent BBDM at full width, in the BBDM child process after 7f: (a)
+   ``VQGANTrainer`` on the JAX ``VQModel`` defaults (ch 128, ch_mult
+   (1, 2, 4), 2 res blocks, z 3, embed 3, 16,384 codes; 256^2 -> 64^2;
+   bf16 autocast) for 10 alternating steps at batch 8 of 256^2 RGB images
+   with ``disc_start`` 5 (the adversarial terms off, then on) and
+   VGG-LPIPS on random VGG16 weights and lins from the seed: each
+   optimizer step timed (steps/s of each, the first apart), the peak,
+   ``d_weight``; (b) ``BBDMModel`` in that frozen VQ model's latent space
+   with normalized latents (statistics from 8 training images), the
+   denoiser at the ``bbdm`` preset's widths (model_channels 128, mult
+   (1, 4, 8), 2 res blocks, 21 cells) on the 3 x 64^2 latent:
+   ``train_bbdm.train(cfg, model=...)`` of the ``bbdm_colorization_rgb``
+   family for 20 steps at batch 8, validation every 10 (steps/s, the
+   peak; its checkpoints counted, not written, as in 7f),
+   and one 200-step sampling batch of 2 decoded to 256^2 (its seconds);
+   (c) a small VQ model (ch 32, ch_mult (1, 2), 64 codes, f32, TF32 off)
+   on the card against the CPU from the same weights: ``encode_pre_quant``
+   and ``decode`` within 1e-5 of the largest magnitude, the code indices
+   equal, one ``train_step_ae``'s losses within 1e-4 relative. No kernel
+   launches in 7i;
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -299,9 +340,18 @@ def phase_kernels(torch, dev, G, arch):
     check(err_224 == 0.0, f"warp masks 224^2: max |err| {err_224}")
     check(torch.equal(k224 > 0.1, r224 > 0.1), "warp masks 224^2: > 0.1 "
           "differs")
+    # the flagship's validation panel: one mask, (1, 256, 256, 1)
+    m1 = masks[:1].contiguous()                              # (1,256,256,1)
+    mats1 = augment.sample_affine_batch(1, 256, 256, gen)
+    k1 = augment.warp_affine_batch(m1, mats1)
+    r1 = augment.warp_affine_batch_ref(m1, mats1)
+    err_1 = (k1 - r1).abs().max().item()
+    check(err_1 == 0.0, f"warp panel mask (1, 256^2): max |err| {err_1}")
+    check(torch.equal(k1 > 0.1, r1 > 0.1), "warp panel mask (1, 256^2): "
+          "> 0.1 differs")
     print(f"[kernels] warp: max|err| masks {err_mask:.3e} masks 224^2 "
-          f"{err_224:.3e} rgb {err_rgb:.3e}, > 0.1 masks identical, "
-          f"identity and flip exact")
+          f"{err_224:.3e} panel mask (1, 256^2) {err_1:.3e} rgb "
+          f"{err_rgb:.3e}, > 0.1 masks identical, identity and flip exact")
 
     # library yardstick: grid_sample on the same warp (align_corners=True
     # maps pixel centres as the kernel does)
@@ -323,9 +373,11 @@ def phase_kernels(torch, dev, G, arch):
 
     lib_warp = lib_warp_fn(masks, mats)
     lib_warp224 = lib_warp_fn(m224, mats224)
+    lib_warp1 = lib_warp_fn(m1, mats1)
     err_lib = (lib_warp().permute(0, 2, 3, 1) - out_r).abs().max().item()
     err_lib224 = (lib_warp224().permute(0, 2, 3, 1)
                   - r224).abs().max().item()
+    err_lib1 = (lib_warp1().permute(0, 2, 3, 1) - r1).abs().max().item()
     numel = masks.numel()
     # image read + output written (f32) + the (2, 3, 3) f32 matrices;
     # ~20 f32 operations per output
@@ -335,23 +387,33 @@ def phase_kernels(torch, dev, G, arch):
         "name": "warp_affine", "route": "cuda",
         "source": "semantic_segmentation_torch/kernels/csrc/warp_affine.cu",
         "replaces": "semantic_segmentation_tpu/ops/pallas_kernels.py:243",
-        "max_abs_err": max(err_mask, err_rgb, err_224),
+        "max_abs_err": max(err_mask, err_rgb, err_224, err_1),
         "bound_ms": b, "bound_us": b * 1e3, "bound_by": why,
         "shape": [2, 256, 256, 1], "library_max_abs_err": err_lib}
     timers["warp_affine"] = (
         "warp_affine_kernel", lambda: augment.warp_affine_batch(masks, mats),
         lambda: augment.warp_affine_batch_ref(masks, mats), lib_warp)
-    # the ISIC224 trainer's shape, timed as a case of the warp's record
+    # the ISIC224 trainer's shape and the flagship panel's, each timed as
+    # a case of the warp's record
     b224, why224 = bound_ms(2 * 4 * m224.numel() + mats224.numel() * 4,
                             20 * m224.numel())
-    records["warp_affine"]["cases"] = [{
-        "shape": [2, 224, 224, 1], "max_abs_err": err_224,
-        "bound_ms": b224, "bound_by": why224,
-        "library_max_abs_err": err_lib224}]
+    b1, why1 = bound_ms(2 * 4 * m1.numel() + mats1.numel() * 4,
+                        20 * m1.numel())
+    records["warp_affine"]["cases"] = [
+        {"case": "224", "shape": [2, 224, 224, 1], "max_abs_err": err_224,
+         "bound_ms": b224, "bound_by": why224,
+         "library_max_abs_err": err_lib224},
+        {"case": "panel", "shape": [1, 256, 256, 1], "max_abs_err": err_1,
+         "bound_ms": b1, "bound_by": why1,
+         "library_max_abs_err": err_lib1}]
     timers["warp_affine@224"] = (
         "warp_affine_kernel",
         lambda: augment.warp_affine_batch(m224, mats224),
         lambda: augment.warp_affine_batch_ref(m224, mats224), lib_warp224)
+    timers["warp_affine@panel"] = (
+        "warp_affine_kernel",
+        lambda: augment.warp_affine_batch(m1, mats1),
+        lambda: augment.warp_affine_batch_ref(m1, mats1), lib_warp1)
 
     # -- equalize and histogram (one cluster kernel each) -------------------
     fake_mask = image.threshold_mask(out_k, 0.1)
@@ -518,7 +580,8 @@ def phase_timing(records, timers):
     for name, (symbol, kernel_fn, plain_fn, lib_fn) in timers.items():
         kernel, _, case = name.partition("@")
         # "kernel@case": a further shape, timed into the kernel's cases
-        rec = records[kernel]["cases"][0] if case else records[kernel]
+        rec = (next(c for c in records[kernel]["cases"] if c["case"] == case)
+               if case else records[kernel])
         rec.update({
             "ms": device_ms(kernel_fn, 200, symbol),
             "wrapper_call_ms": time_ms(kernel_fn, 200),
@@ -710,6 +773,27 @@ TRAINERS = {
 }
 
 
+def flagship_panels(cfg, iters: int, start: int = 0) -> int:
+    """The validation panels ``train_end2end.train`` writes running ``cfg``
+    from iteration ``start`` to ``iters``, each one warp launch: one at
+    every chunk boundary (``valid_step`` iterations a chunk) that crosses
+    a multiple of the train split's size, as the trainer decides it
+    (``crosses_epoch``)."""
+    from semantic_segmentation_torch.data.folder import make_dataset
+    from semantic_segmentation_torch.data.pipeline import subset_split
+    from semantic_segmentation_torch.train.train_end2end import crosses_epoch
+    d = cfg.data
+    n_items = d.n_train if d.synthetic else len(make_dataset(
+        d.dataset, d.dataroot, d.mask_suffix, image_size=d.image_size))
+    n_train = len(subset_split(n_items, d.n_train, d.n_val, d.n_test)[0])
+    count, it = 0, start
+    while it < iters:
+        chunk = min(cfg.engine.valid_step, iters - it)
+        it += chunk
+        count += crosses_epoch(it, chunk, n_train)
+    return count
+
+
 def check_start(torch, ckpt):
     """The engine ``train()`` builds starts from the saved G, D and arch
     tables of the stage-1 checkpoint ``ckpt``."""
@@ -760,12 +844,13 @@ def phase_trainer(torch, ckpt, label: str):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     unet_steps = iters * cfg.engine.unroll_steps
-    want = {"warp_affine": warps * unet_steps,
+    panels = flagship_panels(cfg, iters)
+    want = {"warp_affine": warps * unet_steps + panels,
             "equalize_uint8": equalizes * unet_steps,
             "histogram256": 0, "conv_down4": 0}
     check(launches == want, f"{label}: launches {launches}, not {want} "
           f"({unet_steps} unet inner steps, hypergrad "
-          f"{cfg.engine.hypergrad})")
+          f"{cfg.engine.hypergrad}, {panels} validation panels)")
     for c in results["chunks"]:
         for k in ("loss_netG", "loss_netD", "loss_unet", "val_score"):
             check(math.isfinite(c[k]), f"{label}: {k} not finite: {c}")
@@ -792,7 +877,7 @@ def phase_trainer(torch, ckpt, label: str):
              "test_dice": results["test_dice"],
              "last_metrics": {k: results["chunks"][-1][k] for k in keys
                               if k in results["chunks"][-1]},
-             "launches": launches}
+             "panels": panels, "launches": launches}
     del engine
     torch.cuda.empty_cache()
     return stats
@@ -901,8 +986,9 @@ def phase_real_data(torch, ckpt, synthetic: dict):
     engine, run_a, launches = _folder_train(torch, cfg, TRAIN_ITERS)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp_affine": TRAIN_ITERS, "equalize_uint8": TRAIN_ITERS,
-            "histogram256": 0, "conv_down4": 0}
+    want = {"warp_affine": TRAIN_ITERS + flagship_panels(cfg, TRAIN_ITERS),
+            "equalize_uint8": TRAIN_ITERS, "histogram256": 0,
+            "conv_down4": 0}
     check(launches == want, f"folder: launches {launches}, not {want}")
     for k in ("best_val", "test_dice", "ood_sz"):
         check(k in run_a and math.isfinite(run_a[k]),
@@ -995,7 +1081,8 @@ def phase_real_data(torch, ckpt, synthetic: dict):
     del engine
     torch.cuda.empty_cache()
     check([c["it"] for c in run_r["chunks"]] == [TRAIN_ITERS]
-          and launches_r["warp_affine"] == TRAIN_ITERS - VALID_STEP,
+          and launches_r["warp_affine"] == TRAIN_ITERS - VALID_STEP
+          + flagship_panels(cfg, TRAIN_ITERS, start=VALID_STEP),
           f"resume (b): chunks {run_r['chunks']}, launches {launches_r}")
     gaps = _rel_gaps(run_a["chunks"][1], run_r["chunks"][0])
     check(max(gaps.values()) <= bound,
@@ -1116,8 +1203,9 @@ def _isic_train(torch, cfg, iters: int, label: str):
     launches = dict(kernels.LAUNCHES)
     darts = cfg.engine.hypergrad == "darts"
     unet_steps = iters * (2 if darts else 1)
-    want = {"warp_affine": unet_steps, "equalize_uint8": unet_steps,
-            "histogram256": 0, "conv_down4": 0}
+    want = {"warp_affine": unet_steps + flagship_panels(cfg, iters),
+            "equalize_uint8": unet_steps, "histogram256": 0,
+            "conv_down4": 0}
     check(launches == want, f"{label}: launches {launches}, not {want}")
     for c in results["chunks"]:
         for k in ISIC_LOSSES + ("val_score",) + (("outer_loss",) if darts
@@ -1329,8 +1417,8 @@ def _zoo_train(torch, cfg, iters: int, label: str, dev="cuda",
         e2e.build_engine = plain_build
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    want = {"warp_affine": iters, "equalize_uint8": iters,
-            "histogram256": 0, "conv_down4": 0}
+    want = {"warp_affine": iters + flagship_panels(cfg, iters),
+            "equalize_uint8": iters, "histogram256": 0, "conv_down4": 0}
     check(launches == want, f"{label}: launches {launches}, not {want}")
     for c in results["chunks"]:
         check(all(math.isfinite(c[k]) for k in ZOO_LOSSES + ("val_score",)),
@@ -1645,7 +1733,7 @@ def _check_full_3d(cfg, label: str):
 def _launches_zero(kernels, label: str) -> dict:
     launches = dict(kernels.LAUNCHES)
     check(all(v == 0 for v in launches.values()),
-          f"{label}: a TPU-kernel port launched on the 3D path: {launches}")
+          f"{label}: a kernel launched on a path that has none: {launches}")
     return launches
 
 
@@ -1827,36 +1915,41 @@ def phase_3d(torch, flagship: dict) -> dict:
           f"{flagship['peak_mem_bytes']} bytes")
 
     # (b) the preset's decay_only against the reference's darts, 3
-    # iterations each from the same state; two decay_only runs for the
-    # run-to-run spread
+    # iterations each from the same state; each mode twice for the
+    # run-to-run spread (the path is not deterministic on the card: the
+    # trilinear upsample's backward adds atomically, and two runs of one
+    # mode can agree bit for bit while the other mode's differ)
     kernels.reset_launches()
     d1, s1 = _e3d_mode_run(torch, "decay_only")
     d2, s2 = _e3d_mode_run(torch, "decay_only")
     dk, sk = _e3d_mode_run(torch, "darts")
+    dk2, sk2 = _e3d_mode_run(torch, "darts")
     launches = _launches_zero(kernels, "end2end_3d modes")
-    check(all(m["arch_grad_norm"] == 0.0 for m in dk),
-          f"end2end_3d darts: hypergradient not exactly 0: {dk}")
+    check(all(m["arch_grad_norm"] == 0.0 for m in dk + dk2),
+          f"end2end_3d darts: hypergradient not exactly 0: {dk} {dk2}")
 
     def gap(x, y):
         return max((x[k].float() - y[k].float()).abs().max().item()
                    for k in x)
 
-    spread = gap(s1, s2)
+    spread = max(gap(s1, s2), gap(sk, sk2))
     darts_gap = gap(sk, s1)
     if spread == 0.0:
         check(darts_gap == 0.0, f"end2end_3d: darts' state {darts_gap} off "
-              "decay_only's, whose two runs are bit-identical")
+              "decay_only's, and each mode's two runs are bit-identical")
     else:
         check(darts_gap <= 4 * spread, f"end2end_3d: darts' state "
               f"{darts_gap} off decay_only's, beyond 4x the spread {spread}")
     out["end2end_3d_modes"] = {
-        "iters": E3D_MODE_ITERS, "decay_only_spread": spread,
+        "iters": E3D_MODE_ITERS, "run_to_run_spread": spread,
+        "decay_only_spread": gap(s1, s2), "darts_spread": gap(sk, sk2),
         "darts_gap": darts_gap, "darts_arch_grad_norms":
         [m["arch_grad_norm"] for m in dk], "launches": launches,
         "losses": {"decay_only": d1[-1], "darts": dk[-1]}}
     print(f"[end2end_3d modes] {E3D_MODE_ITERS} iterations: two decay_only "
-          f"runs {spread:.3e} apart, darts {darts_gap:.3e} off decay_only, "
-          "darts hypergradient exactly 0")
+          f"runs {gap(s1, s2):.3e} apart, two darts runs {gap(sk, sk2):.3e}, "
+          f"darts {darts_gap:.3e} off decay_only, darts hypergradient "
+          "exactly 0")
 
     # (c) from a NIfTI folder: int16, scl_slope 2, cropped and padded
     n = write_nifti_folder()
@@ -2266,30 +2359,29 @@ def phase_vae(torch, flagship: dict) -> dict:
     return out
 
 
-class _ByteCounter:
-    """A write-only stream that counts the bytes written into it."""
-
-    def __init__(self):
-        self.n = 0
-
-    def write(self, b) -> int:
-        self.n += len(b)
-        return len(b)
-
-    def flush(self):
-        pass
+def _tensor_bytes(torch, obj) -> int:
+    """The bytes of the tensors in a (nested) dict, list or tuple."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_tensor_bytes(torch, v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(torch, v) for v in obj)
+    return 0
 
 
 class CountedSaves:
-    """Within it ``torch.save`` writes the files under ``keep`` to disk and
-    streams every other one into a byte counter, leaving an empty file in
-    its place: the serialization runs whole (every tensor copied off the
-    card), and each file's bytes, seconds and whether it was written are
-    recorded in ``files``. The H100 host this script was measured on caps
-    a run's disk writes at 45 GiB, and one full-width ``train_bbdm`` run
-    with two validations writes 87 GB (a trainer checkpoint is 19.4 GB)."""
+    """Within it ``torch.save`` writes the files under ``keep`` (none when
+    ``keep`` is None) to disk; every other call serializes nothing and
+    leaves an empty file in its place, and records the bytes of the
+    tensors it was handed. Each file's bytes, seconds and whether it was
+    written are recorded in ``files``. The H100 host this script was
+    measured on caps a run's disk writes at 45 GiB, and one full-width
+    ``train_bbdm`` run with two validations writes 87 GB (a trainer
+    checkpoint is 19.4 GB); streaming the unwritten files into a byte
+    counter took 88 s of a 1,120 s run."""
 
-    def __init__(self, torch, keep: Path):
+    def __init__(self, torch, keep: Path | None):
         self.torch, self.keep, self.files = torch, keep, []
 
     def __enter__(self):
@@ -2297,14 +2389,13 @@ class CountedSaves:
 
         def save(obj, f, *args, **kwargs):
             t0 = time.perf_counter()
-            if Path(f).is_relative_to(self.keep):
+            if self.keep is not None and Path(f).is_relative_to(self.keep):
                 real(obj, f, *args, **kwargs)
                 n, written = Path(f).stat().st_size, True
             else:
-                sink = _ByteCounter()
-                real(obj, sink, *args, **kwargs)
+                Path(f).parent.mkdir(parents=True, exist_ok=True)
                 Path(f).touch()
-                n, written = sink.n, False
+                n, written = _tensor_bytes(self.torch, obj), False
             self.files.append({"file": str(f), "bytes": n,
                                "seconds": time.perf_counter() - t0,
                                "written": written})
@@ -2320,7 +2411,7 @@ class CountedSaves:
 # 256^2, bf16 autocast, T = 1000 with the 200-step sampler
 RUNBBDM = ROOT / "build" / "chip_smoke_bbdm"
 BBDM_DEV = "cuda"
-BBDM_STEPS, BBDM_VALID, E2EB_ITERS, E2EB_FAKE_ITERS = 10, 5, 10, 2
+BBDM_STEPS, BBDM_VALID, E2EB_ITERS, E2EB_FAKE_ITERS = 10, 5, 10, 1
 BBDM_CKPT = RUNBBDM / "bbdm" / "ckpt"  # (a)'s latest: the one file written
 BBDM_ARGV = ["--preset=bbdm", "--data.synthetic=true", "--data.n_train=16",
              "--data.n_val=8", "--data.n_test=2",
@@ -2341,7 +2432,7 @@ def _bbdm_train(torch, saves: CountedSaves) -> dict:
     """(a) ``train_bbdm --preset=bbdm`` at batch 8, 10 steps, validation
     every 5: steady steps/s, peak, finite losses, the latest checkpoint
     (written to disk), the top-k checkpoints and the weight files
-    (streamed into ``saves``' counter)."""
+    (their tensors' bytes counted by ``saves``)."""
     from semantic_segmentation_torch import kernels
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.train import train_bbdm
@@ -2622,8 +2713,8 @@ def phase_bbdm(torch, flagship: dict) -> dict:
     out["bbdm_phase"] = {"wall_s": time.perf_counter() - t_phase}
     print(f"[bbdm] phase 7f took {out['bbdm_phase']['wall_s']:.1f} s; "
           f"{out['bbdm_saves']['files']} checkpoint and weight files of "
-          f"{out['bbdm_saves']['bytes']} bytes serialized in "
-          f"{out['bbdm_saves']['seconds']:.1f} s and not written to disk")
+          f"{out['bbdm_saves']['bytes']} tensor bytes counted, not "
+          f"serialized or written")
     return out
 
 
@@ -2671,6 +2762,439 @@ def _phase_e2eb(torch, flagship: dict) -> dict:
     print(f"[end2end_bbdm darts] one iteration in "
           f"{f['seconds_per_iter']:.2f} s, hypergradient exactly 0, peak "
           f"{f['peak_mem_bytes']} bytes")
+    return out
+
+
+# 7h. the rest of the pix2pix family at full width, in the main process
+COLOR_DIR = DATA_DIR / "color"
+P2PF_DEV = "cuda"
+WGANGP_STEPS, COLOR_STEPS = 5, 10
+
+
+def write_rgb_folder(root: Path, n: int = 16, size: int = 300,
+                     seed: int = 31) -> Path:
+    """``n`` RGB PNGs at ``size``^2 under ``root/Images``: smooth random
+    colour fields (8x8 random colours, bicubic-upsampled; the loaders
+    resize them to 256^2)."""
+    import numpy as np
+    from PIL import Image
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "Images").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (8, 8, 3), np.uint8), "RGB"
+                        ).resize((size, size), Image.BICUBIC).save(
+            root / "Images" / f"img{i:02d}.png")
+    return root
+
+
+def _report(out_dir, n_items: int, per_row: int, label: str) -> dict:
+    """``test_pix2pix``'s report: one titled row per item, ``per_row``
+    images each."""
+    out_dir = Path(out_dir)
+    rows = (out_dir / "index.html").read_text().count("<h3>")
+    images = sorted(p.name for p in (out_dir / "images").iterdir())
+    check(rows == n_items and len(images) == per_row * n_items,
+          f"{label}: {rows} rows and {len(images)} images for {n_items} "
+          f"items")
+    return {"rows": rows, "images": len(images)}
+
+
+def _full_pix2pix(cfg, label: str, output_nc: int = 1):
+    m = cfg.model
+    check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
+           m.output_nc, m.compute_dtype) ==
+          (256, 2, "unet_256", 64, 64, output_nc, "bfloat16"),
+          f"{label}: not the full-width pix2pix configuration")
+
+
+def phase_pix2pix_family(torch, ckpt) -> dict:
+    """Phase 7h (module docstring). Returns {label: stats}."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
+    from semantic_segmentation_torch.train import test_pix2pix, train_pix2pix
+    from semantic_segmentation_torch.utils.bridge import (arch_to_flax,
+                                                          state_dict_to_flax)
+    from semantic_segmentation_torch.utils.serialization import save_pytree
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) test_pix2pix from phase 6's checkpoint over phase 7b's folder
+    jsrt = DATA_DIR / "jsrt"
+    n_items = len(list((jsrt / "Images").iterdir()))
+    cfg = parse_config([f"--data.dataroot={jsrt}",
+                        f"--run.pretrained_pix2pix={ckpt}",
+                        f"--run.save_dir={SAVE_DIR}",
+                        "--run.name=test_pix2pix"], preset="pix2pix_jsrt")
+    _full_pix2pix(cfg, "test_pix2pix")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = test_pix2pix.run(cfg, device=P2PF_DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["test_pix2pix"] = a = {
+        "items": n_items, "wall_s": wall, "seconds_per_image": wall / n_items,
+        **_report(report, n_items, 3, "test_pix2pix"),
+        "launches": _launches_zero(kernels, "test_pix2pix")}
+    print(f"[test_pix2pix] {n_items} items of {jsrt} from {ckpt}: "
+          f"{a['seconds_per_image'] * 1e3:.1f} ms an image (model build, "
+          f"checkpoint load, PNG decode and the report's writes included)")
+
+    # (b) stage 1 under wgangp, a sample grid every step
+    cfg = parse_config(["--data.synthetic=true", "--optim.gan_mode=wgangp",
+                        "--run.log_every=1", f"--run.save_dir={SAVE_DIR}",
+                        "--run.name=pix2pix-wgangp"], preset="pix2pix_jsrt")
+    _full_pix2pix(cfg, "wgangp")
+    check(cfg.optim.gan_mode == "wgangp", "wgangp: not the wgangp mode")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    model, res = train_pix2pix.train(cfg, train_iters=WGANGP_STEPS,
+                                     device=P2PF_DEV)
+    del model
+    log = res["log"]
+    check(len(log) == WGANGP_STEPS and all(
+        math.isfinite(r[k]) for r in log
+        for k in ("loss_G", "loss_D", "loss_D_fake", "loss_D_real")),
+          f"wgangp: losses {log}")
+    grids = sorted(p.name for p in
+                   (SAVE_DIR / cfg.run.name / "samples").iterdir())
+    check(grids == sorted(f"step{i}.png"
+                          for i in range(1, WGANGP_STEPS + 1)),
+          f"wgangp: grids {grids}")
+    steady = log[1:]
+    out["wgangp_trainer"] = b = {
+        "steps": WGANGP_STEPS,
+        "steady_steps_per_s": sum(r["steps"] for r in steady)
+        / sum(r["seconds"] for r in steady),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "losses": [{k: r[k] for k in ("loss_G", "loss_D")} for r in log],
+        "grids": len(grids), "launches": _launches_zero(kernels, "wgangp")}
+    print(f"[wgangp] {b['steady_steps_per_s']:.2f} steps/s (a grid written "
+          f"every step, outside the timed steps), peak "
+          f"{b['peak_mem_bytes']} bytes, losses {b['losses']}")
+    torch.cuda.empty_cache()
+
+    # (c) colorization (L -> ab) from a folder of RGB PNGs, then its report
+    root = write_rgb_folder(COLOR_DIR)
+    argv = [f"--data.dataroot={root}", "--data.n_train=12", "--data.n_val=2",
+            "--data.n_test=2", "--run.log_every=5",
+            f"--run.save_dir={SAVE_DIR}"]
+    cfg = parse_config(argv, preset="pix2pix_colorization")
+    _full_pix2pix(cfg, "colorization", output_nc=2)
+    check(cfg.model.input_nc == 1, "colorization: input_nc is not 1")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    model, res = train_pix2pix.train(cfg, train_iters=COLOR_STEPS,
+                                     device=P2PF_DEV)
+    del model
+    log = res["log"]
+    check(all(math.isfinite(r["loss_G"]) and math.isfinite(r["loss_D"])
+              for r in log), f"colorization: losses {log}")
+    launches = _launches_zero(kernels, "colorization")
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = SAVE_DIR / cfg.run.name
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = test_pix2pix.run(parse_config(
+        argv + [f"--run.pretrained_pix2pix={run_dir}"],
+        preset="pix2pix_colorization"), device=P2PF_DEV)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    n_color = len(list((root / "Images").iterdir()))
+    import numpy as np
+    from PIL import Image
+    fake = np.asarray(Image.open(Path(report) / "images" /
+                                 "item0000_fake.png"))
+    check(fake.shape == (256, 256, 3),
+          f"colorization report: the fake is {fake.shape}, not RGB")
+    out["colorization_trainer"] = c = {
+        "steps": COLOR_STEPS,
+        "steady_steps_per_s": log[1]["steps"] / log[1]["seconds"],
+        "peak_mem_bytes": peak, "losses": log[-1],
+        "samples": len(list((run_dir / "samples").iterdir())),
+        "report_items": n_color, "report_s": report_s,
+        **_report(report, n_color, 3, "colorization report"),
+        "launches": launches,
+        "report_launches": _launches_zero(kernels, "colorization report")}
+    print(f"[colorization] 1 -> 2 channels: {c['steady_steps_per_s']:.2f} "
+          f"steps/s, peak {peak} bytes; test_pix2pix's L/ab report of "
+          f"{n_color} items in {report_s:.2f} s")
+    torch.cuda.empty_cache()
+
+    # (d) phase 6's G and D as the JAX package's .msgpack pair, loaded back
+    cfg = parse_config(["--data.synthetic=true"], preset="pix2pix_jsrt")
+    saved = train_pix2pix.build_pix2pix(cfg, P2PF_DEV,
+                                        torch.Generator().manual_seed(5))
+    train_pix2pix.load_model(saved, str(ckpt))
+    jdir = SAVE_DIR / "pix2pix-msgpack"
+    shutil.rmtree(jdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    # the JAX package's save_model files, in flax's layouts
+    jdir.mkdir(parents=True)
+    g_params, g_stats = state_dict_to_flax(saved.G, saved.G.state_dict())
+    d_params, d_stats = state_dict_to_flax(saved.D, saved.D.state_dict())
+    save_pytree({"g_params": g_params, "g_stats": g_stats,
+                 "arch": arch_to_flax(saved.arch)},
+                str(jdir / train_pix2pix.JAX_FILES[0]))
+    save_pytree({"d_params": d_params, "d_stats": d_stats},
+                str(jdir / train_pix2pix.JAX_FILES[1]))
+    write_s = time.perf_counter() - t0
+    check(sorted(p.name for p in jdir.iterdir()) ==
+          sorted(train_pix2pix.JAX_FILES), f"msgpack: files in {jdir}")
+    fresh = train_pix2pix.build_pix2pix(cfg, P2PF_DEV,
+                                        torch.Generator().manual_seed(6))
+    t0 = time.perf_counter()
+    train_pix2pix.load_model(fresh, str(jdir))
+    load_s = time.perf_counter() - t0
+    ds = SyntheticSegDataset(n=2, size=256, seed=9)
+    x = torch.stack([torch.from_numpy(ds[i]["mask_pix2pix"])
+                     for i in range(2)]).float().to(P2PF_DEV)
+    same = torch.equal(saved.generate(x), fresh.generate(x))
+    check(same and all(torch.equal(v, saved.G.state_dict()[k])
+                       for k, v in fresh.G.state_dict().items()),
+          "msgpack: G loaded from the .msgpack pair differs from the "
+          "saved one")
+    out["pix2pix_msgpack"] = d = {
+        "bytes": {p.name: p.stat().st_size for p in jdir.iterdir()},
+        "write_s": write_s, "load_s": load_s, "generate_identical": same}
+    print(f"[pix2pix msgpack] phase 6's G and D written as the JAX "
+          f"package's pair ({d['bytes']}) in {write_s:.2f} s, loaded into "
+          f"a fresh Pix2Pix on the card in {load_s:.2f} s: G's output "
+          f"identical")
+    del saved, fresh
+    torch.cuda.empty_cache()
+    out["pix2pix_family_phase"] = {"wall_s": time.perf_counter() - t_phase}
+    print(f"[pix2pix family] phase 7h took "
+          f"{out['pix2pix_family_phase']['wall_s']:.1f} s")
+    return out
+
+
+# 7i. latent BBDM and its VQGAN at full width, in the BBDM child process
+LBBDM_DIR = ROOT / "build" / "chip_smoke_lbbdm"
+VQ_STEPS, VQ_DISC_START, VQ_BATCH, LBBDM_STEPS = 10, 5, 8, 20
+LBBDM_ARGV = ["--preset=bbdm", "--data.dataset=bbdm_colorization_rgb",
+              f"--data.dataroot={LBBDM_DIR / 'data'}", "--data.n_train=12",
+              "--data.n_val=2", "--data.n_test=2", "--model.output_nc=3",
+              "--engine.valid_step=10", f"--run.save_dir={LBBDM_DIR}",
+              "--run.name=lbbdm"]
+
+
+def _vqgan_train(torch, images) -> tuple:
+    """(a) ``VQGANTrainer`` on the JAX ``VQModel``'s defaults (the f4 first
+    stage) at batch 8, bf16, with VGG-LPIPS on random VGG16 weights and
+    lins from the seed, ``disc_start`` 5: each optimizer step timed.
+    Returns (the trained VQ model, stats)."""
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.models.diffusion.vqgan import VQModel
+    from semantic_segmentation_torch.models.diffusion.vqgan_train import \
+        VQGANTrainer
+    from semantic_segmentation_torch.models.vgg import VGG16Features
+    dev = BBDM_DEV
+    vq = VQModel(amp=lambda: torch.autocast(torch.device(dev).type,
+                                            dtype=torch.bfloat16),
+                 generator=torch.Generator().manual_seed(0)).to(dev)
+    n_params = sum(p.numel() for p in vq.parameters())
+    enc = vq.encoder
+    check((enc.conv_in.out_channels, len(enc.down), len(enc.down[0].block),
+           vq.embed_dim, vq.quantize.n_embed, vq.downsample) ==
+          (128, 3, 2, 3, 16384, 4), "vqgan: not the JAX VQModel defaults")
+    torch.manual_seed(1)                  # VGG16's torch-default init
+    vgg = VGG16Features().to(dev)
+    g = torch.Generator().manual_seed(2)
+    lins = [(torch.rand(w, generator=g) / w).to(dev)
+            for w in (64, 128, 256, 512, 512)]
+    trainer = VQGANTrainer(vq, disc_start=VQ_DISC_START,
+                           perceptual=(vgg, lins),
+                           generator=torch.Generator().manual_seed(3))
+    x = images[:VQ_BATCH]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ae_s, d_s, recs = [], [], []
+    for step in range(VQ_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_ae = trainer.train_step_ae(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m_d = trainer.train_step_disc(x)
+        torch.cuda.synchronize()
+        d_s.append(time.perf_counter() - t1)
+        ae_s.append(t1 - t0)
+        rec = {k: float(v) for k, v in {**m_ae, **m_d}.items()}
+        active = step >= VQ_DISC_START
+        check(all(math.isfinite(v) for v in rec.values())
+              and rec["disc_factor"] == float(active)
+              and (rec["discloss"] > 0) == active,
+              f"vqgan step {step}: {rec}")
+        recs.append(rec)
+    stats = {"params": n_params, "steps": VQ_STEPS, "batch": VQ_BATCH,
+             "ae_first_step_s": ae_s[0], "disc_first_step_s": d_s[0],
+             "ae_steps_per_s": (VQ_STEPS - 1) / sum(ae_s[1:]),
+             "disc_steps_per_s": (VQ_STEPS - 1) / sum(d_s[1:]),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "d_weight": [r["d_weight"] for r in recs],
+             "last": recs[-1], "launches": _launches_zero(kernels, "vqgan")}
+    del trainer, vgg
+    vq.requires_grad_(False)
+    torch.cuda.empty_cache()
+    return vq, stats
+
+
+def _lbbdm(torch, vq, splits) -> dict:
+    """(b) ``BBDMModel`` in the latent space of the frozen ``vq`` at the
+    ``bbdm`` preset's widths, with normalized latents: ``train_bbdm.train``
+    for 20 steps at batch 8 (its checkpoints counted, not written),
+    then one 200-step sampling batch of 2 decoded to 256^2."""
+    import numpy as np
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.train import train_bbdm
+    dev = BBDM_DEV
+    cfg = parse_config(LBBDM_ARGV)
+    check((cfg.data.batch_size, cfg.data.image_size,
+           cfg.model.compute_dtype) == (8, 256, "bfloat16"),
+          "lbbdm: not the bbdm preset's batch, size and dtype")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    model = train_bbdm.BBDMModel(
+        3, compute_dtype=cfg.model.compute_dtype, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(cfg.run.seed),
+        vqgan=vq, normalize_latent=True)
+    n_params = sum(p.numel() for p in model.unet.parameters())
+    check((model.n_cells, model.unet.model_channels,
+           model.unet.in0.in_channels) == (21, 128, 6),
+          "lbbdm: not the bbdm preset's denoiser on the 3-channel latent")
+    imgs = torch.from_numpy(splits["train"]["image_pix2pix"][:VQ_BATCH])
+    model.latent_stats = model.latent.estimate_latent_stats(
+        imgs.permute(0, 3, 1, 2).to(dev) * 2 - 1)
+    saves = CountedSaves(torch, None)
+    t0 = time.perf_counter()
+    with saves:
+        model, res = train_bbdm.train(cfg, LBBDM_STEPS, model, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = res["log"]
+    check(len(log) == 2 and all(math.isfinite(r["loss"]) and
+                                math.isfinite(r["val_loss"]) for r in log),
+          f"lbbdm: losses {log}")
+    peak = torch.cuda.max_memory_allocated()
+    cond = torch.from_numpy(splits["val"]["mask_pix2pix"][:2]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample = model.sample(cond, generator=torch.Generator(
+        device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    s = sample.cpu().numpy()
+    check(s.shape == (2, 256, 256, 3) and np.isfinite(s).all(),
+          f"lbbdm sample: {s.shape}, finite {np.isfinite(s).all()}")
+    out = {"params": n_params, "steps": LBBDM_STEPS,
+           "batch": cfg.data.batch_size, "wall_s": wall,
+           "steady_steps_per_s": log[1]["steps"] / log[1]["seconds"],
+           "first_chunk_s": log[0]["seconds"], "peak_mem_bytes": peak,
+           "latent_stats": {k: float(v) for k, v in
+                            model.latent_stats.items()},
+           "log": log, "sampling_batch_s": sample_s, "sampling_batch": 2,
+           "sample_range": [float(s.min()), float(s.max())],
+           "unwritten_saves": len(saves.files),
+           "unwritten_bytes": sum(f["bytes"] for f in saves.files),
+           "launches": _launches_zero(kernels, "lbbdm")}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vqgan_small_card_vs_cpu(torch) -> dict:
+    """(c) a small VQ model (ch 32, ch_mult (1, 2), 64 codes, f32, TF32 off)
+    on the card against the CPU from the same weights: the encoder, the
+    code indices, the decoder and one autoencoder step's losses."""
+    import copy
+    from semantic_segmentation_torch.models.diffusion.vqgan import VQModel
+    from semantic_segmentation_torch.models.diffusion.vqgan_train import \
+        VQGANTrainer
+    dev = BBDM_DEV
+    cpu = VQModel(ch=32, ch_mult=(1, 2), n_embed=64,
+                  generator=torch.Generator().manual_seed(4))
+    card = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():             # codes spread over the latent's range
+        for m in (cpu, card):
+            m.quantize.embedding.weight.copy_(
+                torch.randn(64, 3, generator=torch.Generator().manual_seed(
+                    6)).to(m.quantize.embedding.weight.device))
+    x = torch.rand(2, 32, 32, 3, generator=g) * 2 - 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for name, m in (("cpu", cpu), ("card", card)):
+            xd = x.to(next(m.parameters()).device).permute(0, 3, 1, 2)
+            with torch.no_grad():
+                z = m.encode_pre_quant(xd)
+                zq, _, idx = m.quantize(z)
+                rec = m.decode(zq)
+            tr = VQGANTrainer(m, disc_start=0, disc_ndf=16,
+                              generator=torch.Generator().manual_seed(7))
+            losses = {k: float(v) for k, v in
+                      tr.train_step_ae(x.to(xd.device)).items()}
+            res[name] = (z.cpu(), idx.cpu(), rec.cpu(), losses)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    (zc, ic, rc, lc), (zg, ig, rg, lg) = res["cpu"], res["card"]
+    loss_gap = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12)
+                   for k in ("aeloss", "nll_loss", "g_loss", "qloss",
+                             "d_weight"))
+    out = {"encode_gap": gap(zg, zc), "decode_gap": gap(rg, rc),
+           "indices_equal": bool(torch.equal(ig, ic)),
+           "codes_used": int(ic.unique().numel()),
+           "ae_loss_gap": loss_gap, "losses_card": lg, "losses_cpu": lc}
+    check(out["encode_gap"] <= 1e-5 and out["indices_equal"]
+          and out["decode_gap"] <= 1e-5 and loss_gap <= 1e-4,
+          f"vqgan small: card against CPU {out}")
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lbbdm(torch) -> dict:
+    """Phase 7i (module docstring). Returns {label: stats}."""
+    from semantic_segmentation_torch.train.common import load_splits
+    from semantic_segmentation_torch.core.config import parse_config
+    t_phase = time.perf_counter()
+    shutil.rmtree(LBBDM_DIR, ignore_errors=True)
+    write_rgb_folder(LBBDM_DIR / "data", seed=32)
+    splits = load_splits(parse_config(LBBDM_ARGV))
+    images = torch.from_numpy(splits["train"]["image_pix2pix"]).to(
+        BBDM_DEV) * 2 - 1
+    out = {}
+    vq, a = _vqgan_train(torch, images)
+    out["vqgan_trainer"] = a
+    print(f"[vqgan] {a['params']} parameters, batch {VQ_BATCH} at 256^2: "
+          f"autoencoder step {a['ae_steps_per_s']:.2f} steps/s, D step "
+          f"{a['disc_steps_per_s']:.2f} steps/s (first steps "
+          f"{a['ae_first_step_s']:.2f} s and {a['disc_first_step_s']:.2f} "
+          f"s), peak {a['peak_mem_bytes']} bytes, d_weight {a['d_weight']}")
+    out["lbbdm_trainer"] = b = _lbbdm(torch, vq, splits)
+    print(f"[lbbdm] denoiser {b['params']} parameters on the 3 x 64^2 "
+          f"latent, batch 8: {b['steady_steps_per_s']:.2f} steps/s, peak "
+          f"{b['peak_mem_bytes']} bytes, losses "
+          f"{[(r['loss'], r['val_loss']) for r in b['log']]}; one 200-step "
+          f"sampling batch of 2 decoded to 256^2 in "
+          f"{b['sampling_batch_s']:.2f} s")
+    del vq
+    torch.cuda.empty_cache()
+    out["vqgan_small"] = c = _vqgan_small_card_vs_cpu(torch)
+    print(f"[vqgan small] card against CPU: encoder {c['encode_gap']:.2e}, "
+          f"decoder {c['decode_gap']:.2e}, indices equal "
+          f"({c['codes_used']} codes used), autoencoder-step losses "
+          f"{c['ae_loss_gap']:.2e}")
+    out["lbbdm_phase"] = {"wall_s": time.perf_counter() - t_phase}
+    print(f"[lbbdm] phase 7i took {out['lbbdm_phase']['wall_s']:.1f} s")
     return out
 
 
@@ -2796,6 +3320,7 @@ def bbdm_child(torch, flagship_it_per_s: float) -> int:
         prefer_cudnn_heuristic_mode_b
     prefer_cudnn_heuristic_mode_b(BBDM_DEV)     # before the first conv
     out = phase_bbdm(torch, {"steady_it_per_s": flagship_it_per_s})
+    out.update(phase_lbbdm(torch))
     BBDM_FILE.write_text(json.dumps(out))
     return 0
 
@@ -2833,12 +3358,21 @@ def main() -> int:
         return bbdm_child(torch, float(sys.argv[2]))
     from semantic_segmentation_torch.bench.timing import card_line
 
+    # each phase's wall seconds (the script must end within 1,200 s)
+    phase_s, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     # 1. device
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"[device] nvidia-smi: {card} | torch: {name} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    lap("1")
     # 2. build
     from semantic_segmentation_torch.kernels import build
     t0 = time.perf_counter()
@@ -2846,6 +3380,7 @@ def main() -> int:
     print(f"[build] {sorted(built) or 'all cached'} in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    lap("build")
     # 3-5. parity phases in full float32 (cuDNN's TF32 default off)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2865,6 +3400,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True     # the trainer's defaults
     torch.cuda.empty_cache()
 
+    lap("3-5")
     # 6. stage-1 trainer; 7. the flagship trainer from its checkpoint
     p2p_stats, ckpt = phase_pix2pix(torch)
     print(f"[pix2pix] {card}: " + json.dumps(p2p_stats))
@@ -2877,16 +3413,19 @@ def main() -> int:
         print(f"[{label}] {card}: " + json.dumps(trainer_stats[label]))
         paths[label] = trainer_stats[label]["launches"]
 
+    lap("6-7")
     # 7b. the real-data path: folder, resume, test_seg, train_unet
     folder = phase_real_data(torch, ckpt, trainer_stats["end2end_trainer"])
     print(f"[folder_trainer] {card}: " + json.dumps(folder))
     paths["folder_trainer"] = folder["launches"]
 
+    lap("7b")
     # 7c. the ISIC family
     for label, stats in phase_isic(torch).items():
         print(f"[{label}] {card}: " + json.dumps(stats))
         paths[label] = stats["launches"]
 
+    lap("7c")
     # 7d. the segmenter zoo: DeepLabV3 in the flagship (remat, accumulate,
     # test_seg, export_seg), DeepLabV2 and the bilinear U-Net in train_unet
     for label, stats in phase_zoo(torch, ckpt,
@@ -2895,6 +3434,7 @@ def main() -> int:
         if "launches" in stats:
             paths[label] = stats["launches"]
 
+    lap("7d")
     # 7e. GenSeg-3D: end2end_3d (synthetic and NIfTI), its darts mode,
     # train_pix2pix_3d, train_unet3d, and the small case card against CPU
     for label, stats in phase_3d(torch,
@@ -2903,15 +3443,18 @@ def main() -> int:
         if "launches" in stats:
             paths[label] = stats["launches"]
 
+    lap("7e")
     # 7f. pixel-space BBDM, in a fresh process: train_bbdm, sample_only,
     # end2end_bbdm at its preset, with the fake branch and the
     # photometric chain, darts, and the small case card against CPU
+    # 7i. (in the same process) latent BBDM with its VQGAN and trainer
     for label, stats in run_bbdm_child(
             trainer_stats["end2end_trainer"]).items():
         print(f"[{label}] {card}: " + json.dumps(stats))
         if "launches" in stats:
             paths[label] = stats["launches"]
 
+    lap("7f-7i")
     # 7g. the soft-intro VAE family: train_vae (mse and vgg),
     # end2end_sivae (decay_only and darts), inference_vae, FID and LPIPS
     # through evaluate_samples, and the small case card against CPU
@@ -2922,9 +3465,21 @@ def main() -> int:
             paths[label] = stats["launches"]
     torch.cuda.empty_cache()
 
+    lap("7g")
+    # 7h. the rest of the pix2pix family: test_pix2pix and its report,
+    # wgangp, colorization, the JAX package's .msgpack checkpoints
+    for label, stats in phase_pix2pix_family(torch, ckpt).items():
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        if "launches" in stats:
+            paths[label] = stats["launches"]
+    torch.cuda.empty_cache()
+
+    lap("7h")
     # 8. timing and the benchmark paths, in a fresh process
     records, bench_paths = run_timing_child()
     paths.update(bench_paths)
+    lap("8")
+    print("[phase seconds] " + json.dumps(phase_s))
     main_path = {"warp_affine": "end2end_trainer",
                  "equalize_uint8": "end2end_trainer",
                  "histogram256": "bench_kernels",

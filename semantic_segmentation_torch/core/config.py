@@ -4,8 +4,7 @@ The port's own copy of ``semantic_segmentation_tpu/core/config.py``, with
 the same sections, field names and defaults, so one command line means the
 same run on both packages. It holds only the fields and presets the port
 uses, plus ``run.device``: an option of the JAX package that the port does
-not implement yet (the data mesh, wgangp) is refused, not
-ignored.
+not implement yet (the data mesh) is refused, not ignored.
 
 CLI: ``--section.field=value`` overrides any leaf (parsed with the field's
 type; a tuple field splits on commas); ``--preset=name`` applies a named
@@ -190,6 +189,12 @@ PRESETS: dict[str, dict[str, Any]] = {
                      "data.dataset": "isic", "data.n_train": 80,
                      "data.n_val": 20, "data.n_test": 0,
                      "model.output_nc": 3, "run.name": "pix2pix-ISIC"},
+    # ColorizationModel (models_pix2pix/colorization_model.py): L -> ab,
+    # input_nc 1, output_nc 2, the boilerplate pix2pix lr
+    "pix2pix_colorization": {"data.dataset": "pix2pix_colorization",
+                             "model.input_nc": 1, "model.output_nc": 2,
+                             "optim.lr": 2e-4,
+                             "run.name": "pix2pix-colorization"},
     # scripts/train_end2end_isic.sh: 40 labeled (32+8), 594 test, Jaccard
     # loss; fakes post-processed by the fake_trans photometric chain
     # (train_end2end_isic.py:178-183, applied :264). output_nc stays 1 as

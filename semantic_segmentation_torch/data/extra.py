@@ -152,6 +152,20 @@ class LABColorizationDataset(_ImageDir):
         return {"image_pix2pix": lab, "mask_pix2pix": cond}
 
 
+class Pix2PixColorizationDataset(_ImageDir):
+    """The pix2pix colorization pairs (``models_pix2pix/colorization_model.
+    py:7-13``, input_nc 1, output_nc 2): the condition is the L channel of
+    the 8-bit LAB decode, the target its a and b channels, both in [0, 1];
+    ``lab_to_rgb`` renders (L, ab) for the visuals."""
+
+    def __getitem__(self, index):
+        img = self.load(index)
+        lab = rgb_to_lab_u8(
+            np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+        ).astype(np.float32) / 255.0
+        return {"image_pix2pix": lab[..., 1:], "mask_pix2pix": lab[..., :1]}
+
+
 BBDM_FAMILIES = {"single": SingleImageDataset,
                  "colorization_rgb": ColorizationDataset,
                  "colorization_lab": LABColorizationDataset,

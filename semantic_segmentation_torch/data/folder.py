@@ -97,7 +97,6 @@ DATASET_SPECS: dict[str, DatasetSpec] = {
 UNPORTED_FAMILIES = {
     "b_subtilis": 8, "bsubtilis": 8, "omnipose": 8, "diabetic": 8,
     "deepict": 8, "deepict_test": 8, "nib": 8,
-    "pix2pix_colorization": 4,
 }
 
 
@@ -184,8 +183,9 @@ def make_dataset(name: str, root: str, mask_suffix: str = "",
     and ``bbdm_single``, ``bbdm_colorization_rgb``,
     ``bbdm_colorization_lab`` and ``bbdm_inpainting`` read ONE image
     folder (``<root>/Images`` when present, else ``root``), at 256^2 unless
-    ``image_size`` says otherwise. The other in-memory families are not
-    ported yet and raise."""
+    ``image_size`` says otherwise; ``pix2pix_colorization`` reads one image
+    folder the same way (L -> ab pairs). The other in-memory families are
+    not ported yet and raise."""
     key = name.lower()
     if key.startswith("bbdm_") and key != "bbdm_aligned":
         from semantic_segmentation_torch.data.extra import BBDM_FAMILIES
@@ -197,6 +197,17 @@ def make_dataset(name: str, root: str, mask_suffix: str = "",
             img_dir = root
         return BBDM_FAMILIES[task](img_dir, image_size=image_size or 256,
                                    flip=False)
+    if key == "pix2pix_colorization":
+        # ColorizationModel's dataset_mode=colorization (L -> ab), one image
+        # folder like the BBDM families (colorization_model.py:29)
+        from semantic_segmentation_torch.data.extra import \
+            Pix2PixColorizationDataset
+        img_dir = os.path.join(root, images_sub)
+        if not os.path.isdir(img_dir):
+            img_dir = root
+        return Pix2PixColorizationDataset(img_dir,
+                                          image_size=image_size or 256,
+                                          flip=False)
     if key == "bbdm_aligned":      # custom_aligned: the generic paired layout
         return PairedImageFolder(
             os.path.join(root, images_sub), os.path.join(root, masks_sub),

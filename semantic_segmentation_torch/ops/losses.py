@@ -143,14 +143,51 @@ def seg_criterion(logits, targets, n_classes: int):
 
 
 def gan_loss(pred, target_is_real: bool, gan_mode: str = "vanilla"):
-    """GANLoss: vanilla (BCE on logits) or lsgan (MSE)."""
+    """GANLoss: vanilla (BCE on logits), lsgan (MSE) or wgangp (the signed
+    mean: -mean for real, +mean for fake)."""
     pred = pred.float()
+    if gan_mode == "wgangp":
+        return -torch.mean(pred) if target_is_real else torch.mean(pred)
     target = torch.full_like(pred, 1.0 if target_is_real else 0.0)
     if gan_mode == "vanilla":
         return bce_with_logits(pred, target)
     if gan_mode == "lsgan":
         return torch.mean(torch.square(pred - target))
     raise NotImplementedError(f"gan mode {gan_mode} not implemented")
+
+
+def gradient_penalty(disc_fn, real, fake, kind: str = "mixed",
+                     constant: float = 1.0, lambda_gp: float = 10.0,
+                     alpha=None, generator: torch.Generator | None = None):
+    """The WGAN-GP penalty (``models_pix2pix/networks.py:284-318``):
+    ``lambda_gp * mean((|grad_x D(x)| - constant)^2)`` at x the real
+    images, the fakes or (``mixed``) ``alpha * real + (1 - alpha) * fake``
+    with one ``alpha`` per image, (N, 1, ...) uniform, given or drawn from
+    ``generator``. The gradient is taken of the sum of ``disc_fn``'s
+    logits with its graph kept, so the penalty differentiates with
+    respect to D's weights (and to the images where they carry a graph); the norm is of ``grads + 1e-16``, as the JAX
+    package takes it."""
+    if lambda_gp <= 0.0:
+        return torch.zeros((), device=real.device)
+    real, fake = real.float(), fake.float()
+    if kind == "real":
+        interp = real
+    elif kind == "fake":
+        interp = fake
+    elif kind == "mixed":
+        if alpha is None:
+            alpha = torch.rand((real.shape[0],) + (1,) * (real.dim() - 1),
+                               generator=generator, device=real.device)
+        interp = alpha * real + (1.0 - alpha) * fake
+    else:
+        raise NotImplementedError(kind)
+    if not interp.requires_grad:
+        interp = interp.detach().requires_grad_(True)
+    (grads,) = torch.autograd.grad(disc_fn(interp).float().sum(), interp,
+                                   create_graph=True)
+    norm = torch.linalg.vector_norm(
+        grads.reshape(real.shape[0], -1) + 1e-16, dim=1)
+    return torch.mean(torch.square(norm - constant)) * lambda_gp
 
 
 def l1_loss(pred, target):

@@ -20,6 +20,9 @@ from semantic_segmentation_torch.data.pipeline import (stack_dataset,
                                                        subset_split)
 from semantic_segmentation_torch.data.synthetic import SyntheticSegDataset
 from semantic_segmentation_torch.models.seg import SWIN_NAMES, SegProblem
+from semantic_segmentation_torch.utils.bridge import load_flax
+from semantic_segmentation_torch.utils.serialization import (load_pytree,
+                                                             to_numpy_tree)
 from semantic_segmentation_torch.utils.torch_port import (
     is_milesial, load_milesial, load_state_dict, overlay, port_seg_checkpoint)
 
@@ -127,21 +130,23 @@ def _unet_state_from_checkpoint(state: dict) -> dict:
 def load_seg_state(cfg: Config, net: torch.nn.Module, model_file: str = ""):
     """Load trained weights into ``net`` in place: an explicit file (the
     port's ``.pt`` ``state_dict``, e.g. ``unet_best.pt``, of any
-    segmenter, or for ``unet`` a reference milesial ``state_dict``
+    segmenter; for ``unet`` a reference milesial ``state_dict``
     ``.pkl``/``.pth``, mapped on the fly — test_lung.py:67's opt.model_dir
-    analogue), else the run's best checkpoint in ``<save_dir>/<name>/ckpt``
-    (engine or supervised layout).
+    analogue; or the JAX package's ``.msgpack`` {'params', 'stats'} of any
+    segmenter, through the weight bridge), else the run's best checkpoint
+    in ``<save_dir>/<name>/ckpt`` (engine or supervised layout).
 
     Returns ``(net, loaded)``: ``loaded`` is False when nothing resolved and
     ``net`` keeps its fresh init. A failed lookup creates no directory."""
     if model_file:
         if model_file.endswith(".msgpack"):
-            raise NotImplementedError(
-                "loading the JAX package's .msgpack checkpoints comes with "
-                "ROADMAP.md section 1 item 4")
+            tree = to_numpy_tree(load_pytree(model_file))
+            load_flax(net, tree["params"], tree.get("stats", {}))
+            return net, True
         if not model_file.endswith((".pt", ".pth", ".pkl")):
             raise ValueError(f"model_file {model_file!r}: expected a .pt, "
-                             ".pth or .pkl state_dict")
+                             ".pth or .pkl state_dict, or the JAX "
+                             "package's .msgpack")
         sd = load_state_dict(model_file)
         if cfg.model.seg_model == "unet" and is_milesial(sd):
             load_milesial(net, sd)

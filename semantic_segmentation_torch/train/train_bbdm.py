@@ -1,6 +1,9 @@
 """BBDM pre-training — the port of
 ``semantic_segmentation_tpu/train/train_bbdm.py`` (``BBDM/runners/
-BaseRunner.py:24-594`` and ``BBDMRunner.py:17-250``), pixel space:
+BaseRunner.py:24-594`` and ``BBDMRunner.py:17-250``), in pixel space or,
+with a frozen VQGAN (``BBDMModel(vqgan=...)``, passed in through
+``train(cfg, model=...)`` as in the JAX package: no CLI option), in its
+latent space:
 
 - the Brownian bridge (``models/diffusion/bbdm.py``) around the ADM
   denoiser with its NAS cells (``models/diffusion/adm_unet.py``), the arch
@@ -63,6 +66,9 @@ from semantic_segmentation_torch.models.diffusion.bbdm import (
 from semantic_segmentation_torch.models.diffusion.ema import (EMAConfig,
                                                               ema_init,
                                                               ema_step)
+from semantic_segmentation_torch.models.diffusion.latent_bbdm import \
+    LatentBrownianBridge
+from semantic_segmentation_torch.models.diffusion.vqgan import VQModel
 from semantic_segmentation_torch.ops import gen_metrics
 from semantic_segmentation_torch.ops.nas import NUM_OPS
 from semantic_segmentation_torch.train.common import (fold_generator,
@@ -115,7 +121,18 @@ class BBDMModel:
     """The bridge, the denoiser, its arch table, Adam and the EMA on one
     device. Weights and arch are drawn on ``device`` from ``generator``
     (a generator on that device). ``ema=False`` keeps no EMA (the bilevel
-    program has none)."""
+    program has none).
+
+    With ``vqgan`` (a ``models/diffusion/vqgan.VQModel`` on ``device``,
+    frozen here) the bridge runs in its latent space, latent BBDM
+    (Template-LBBDM-*.yaml, ``models/diffusion/latent_bbdm.py``): the
+    denoiser takes the latent and its condition's latent (``2 *
+    vqgan.embed_dim`` channels in, ``channels`` out, which must be the
+    latent's), the loss encodes target and condition first, and samples
+    are decoded back to images. ``latent_stats`` ({'mean', 'std'}, from
+    ``latent.estimate_latent_stats``) normalizes the latents where
+    ``normalize_latent``; it is None, and nothing is normalized, until the
+    caller sets it, as in the JAX package."""
 
     def __init__(self, channels: int = 1, model_channels: int = 128,
                  channel_mult=(1, 4, 8), num_res_blocks: int = 2,
@@ -124,10 +141,13 @@ class BBDMModel:
                  lr: float = 1e-4, accumulate: int = 1,
                  ema_cfg: EMAConfig | None = None,
                  compute_dtype: str = "bfloat16", device="cpu",
-                 generator: torch.Generator | None = None, ema: bool = True):
+                 generator: torch.Generator | None = None, ema: bool = True,
+                 vqgan: VQModel | None = None,
+                 normalize_latent: bool = False):
         self.device = torch.device(device)
+        in_channels = 2 * (channels if vqgan is None else vqgan.embed_dim)
         with self.device:
-            self.unet = ADMUNet(2 * channels, channels, model_channels,
+            self.unet = ADMUNet(in_channels, channels, model_channels,
                                 num_res_blocks,
                                 channel_mult=tuple(channel_mult))
         init_weights_(self.unet, generator)
@@ -143,6 +163,13 @@ class BBDMModel:
         self.sched = schedule or BridgeSchedule()
         self.ema_cfg = ema_cfg or EMAConfig()
         self.bridge = BrownianBridge(self.sched, objective, loss_type)
+        self.latent, self.latent_stats = None, None
+        if vqgan is not None:
+            vqgan.requires_grad_(False).eval()
+            self.latent = LatentBrownianBridge(
+                vqgan, self.sched, objective, loss_type,
+                condition_key="first_stage",
+                normalize_latent=normalize_latent)
         if compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
         self.kernel_dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
@@ -186,6 +213,10 @@ class BBDMModel:
         ``mask_pix2pix``, both mapped to [-1, 1]. Returns (loss, aux)."""
         x0 = _nchw(batch["image_pix2pix"].float()) * 2.0 - 1.0
         y = _nchw(batch["mask_pix2pix"].float()) * 2.0 - 1.0
+        if self.latent is not None:
+            return self.latent.p_losses(self.denoiser(params, arch), x0, y,
+                                        draws, generator, self.latent_stats,
+                                        train=train)
         return self.bridge.p_losses(self.denoiser(params, arch), x0, y,
                                     draws, generator, train=train)
 
@@ -210,11 +241,15 @@ class BBDMModel:
     def sample_loop(self, y, params: dict | None = None, arch=None,
                     noises=None, generator=None):
         """The whole sampler from the NCHW condition ``y`` in [-1, 1], with
-        every cell's mixed kernel assembled once for the run."""
+        every cell's mixed kernel assembled once for the run; through the
+        frozen VQGAN when latent (``noises`` then of the latent's shape)."""
         arch = self.arch if arch is None else arch
         kernels = self.unet.assemble(arch, params, self.kernel_dtype)
-        return self.bridge.p_sample_loop(
-            self.denoiser(params, arch, kernels), y, noises, generator)
+        denoise = self.denoiser(params, arch, kernels)
+        if self.latent is not None:
+            return self.latent.sample(denoise, y, noises, generator,
+                                      self.latent_stats)
+        return self.bridge.p_sample_loop(denoise, y, noises, generator)
 
     def sample(self, cond, use_ema: bool = True, noises=None,
                generator=None):

@@ -30,9 +30,11 @@ on the mean of k micro-gradients; ``--run.seg_pretrained`` starts the
 segmenter from a reference torch checkpoint.
 
 Validation Dice (Jaccard for ISIC) every ``valid_step``; best-val
-snapshot; ReduceLROnPlateau on the unet lr every len(train) steps; the
-metric stream, periodic and final checkpoints and resume; final test and
-OOD scores of the best segmenter; ``torch.save`` of it.
+snapshot; ReduceLROnPlateau on the unet lr every len(train) steps, with
+the four validation panels (``panels/it<it>.png``: G on the augmented
+[warp kernel], thresholded first validation mask); the metric stream,
+periodic and final checkpoints and resume; final test and OOD scores of
+the best segmenter; ``torch.save`` of it.
 
 The public ops keep the JAX package's NHWC layout; the nets are NCHW. The
 closures permute at the boundary, a view at C = 1.
@@ -78,11 +80,13 @@ from semantic_segmentation_torch.ops.metrics import eval_batch_score
 from semantic_segmentation_torch.ops.photometric import random_photometric
 from semantic_segmentation_torch.train.common import (apply_seg_pretrained,
                                                       autocast_for,
+                                                      fold_generator,
                                                       load_splits, seg_metric,
                                                       seg_model_kwargs)
 from semantic_segmentation_torch.train.train_pix2pix import (build_pix2pix,
                                                              load_model)
 from semantic_segmentation_torch.train.train_unet import evaluate_split
+from semantic_segmentation_torch.utils.visuals import save_image_grid
 
 PROBLEMS = ("netG", "netD", "unet")
 
@@ -293,6 +297,48 @@ def index_streams(cfg: Config, n_train: int, n_val: int, start: int = 0,
     return streams, val_stream
 
 
+def crosses_epoch(it: int, chunk: int, n_train: int) -> bool:
+    """Whether the chunk of ``chunk`` iterations ending at ``it`` crosses a
+    multiple of ``n_train``: where the trainer steps the plateau and saves
+    the validation panels (every len(train) global steps,
+    train_end2end_jsrt.py:206-223, 254-255, applied at chunk
+    boundaries)."""
+    n = max(n_train, 1)
+    return (it // n) != ((it - chunk) // n)
+
+
+@torch.no_grad()
+def panel_fakes(p2p: Pix2Pix, masks, amp, mats=None, generator=None):
+    """The panel's fake pair (JAX ``_panel_fakes``): the NHWC ``masks``
+    augmented [warp kernel; affine ``mats`` (N, 3, 3), or drawn from
+    ``generator``] and thresholded at 0.1, and G's image of that mask in
+    eval mode, min-max normalized. Returns (fake_mask, fake_image),
+    NHWC."""
+    fake_mask = iops.threshold_mask(
+        random_augment_batch(masks, generator, mats), 0.1)
+    with amp():
+        fake = p2p.g_apply(_nchw(fake_mask), p2p.arch["upconv"], False)
+    return fake_mask, iops.minmax_normalize(_nhwc(fake.float()))
+
+
+def save_validation_panels(p2p: Pix2Pix, val_dev: dict, it: int,
+                           save_dir: str, log, amp, mats=None,
+                           generator=None) -> dict:
+    """The reference's four wandb panels (train_end2end_jsrt.py:206-223):
+    the first validation image, its mask, ``panel_fakes``' image and mask,
+    as ``panels/it<it>.png`` and wandb images. Returns the panels."""
+    masks = val_dev["mask"][:1].float()
+    fake_mask, fake_image = panel_fakes(p2p, masks, amp, mats, generator)
+    panels = {"show_image": val_dev["image"][0].float().cpu().numpy(),
+              "show_mask": masks[0].cpu().numpy(),
+              "show_fake_image": fake_image[0].cpu().numpy(),
+              "show_fake_mask": fake_mask[0].cpu().numpy()}
+    save_image_grid(list(panels.values()),
+                    os.path.join(save_dir, "panels", f"it{it}.png"), cols=4)
+    log.log_images(panels, it)
+    return panels
+
+
 def _log_mode_notes(log, e):
     """The JAX trainer's two notes on the hypergradient mode."""
     if e.hypergrad == "darts" and set(e.arch_children) <= {"netG", "netD"}:
@@ -412,10 +458,15 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
                     # the search's trajectory: the (small) arch tables in full
                     log.log({f"arch_{k}": v.detach().cpu().tolist()
                              for k, v in engine.arch.items()}, it)
-                # plateau stepping every len(train_set) global steps
-                # (train_end2end_jsrt.py:254-255), applied per chunk boundary
-                if (it // max(n_train, 1)) != ((it - S) // max(n_train, 1)):
+                # plateau stepping and the panels every len(train_set)
+                # global steps, applied per chunk boundary; the panel's
+                # affine draws from their own fold of the seed
+                if crosses_epoch(it, S, n_train):
                     plateau.step(best_val)
+                    save_validation_panels(
+                        p2p, val_dev, it, save_dir, log, amp,
+                        generator=fold_generator(cfg.run.seed, 2 ** 30 + it,
+                                                 dev))
                 # after the plateau step, so the checkpoint holds this
                 # iteration's whole state
                 if cfg.run.save_every and it % cfg.run.save_every == 0:

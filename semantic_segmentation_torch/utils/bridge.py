@@ -151,3 +151,76 @@ def load_sivae_flax(vae: nn.Module, variables: dict):
         vae.arch.copy_(torch.from_numpy(np.asarray(variables["arch"],
                                                    np.float32)))
     return vae
+
+
+def _vqgan_module_key(side: str, name: str) -> str:
+    """The port's (taming's) module path of the JAX ``VQModel`` submodule
+    ``name`` of ``side`` ('encoder'/'decoder'): ``down{i}_block{j}`` ->
+    ``down.{i}.block.{j}``, ``down{i}_conv`` -> ``down.{i}.downsample.conv``
+    (``up...`` likewise with ``upsample``), ``mid_block1``/``mid_attn``/
+    ``mid_block2`` -> ``mid.block_1``/``mid.attn_1``/``mid.block_2``."""
+    mid = {"mid_block1": "mid.block_1", "mid_attn": "mid.attn_1",
+           "mid_block2": "mid.block_2"}
+    if name in mid:
+        return f"{side}.{mid[name]}"
+    for kind, resample in (("down", "downsample"), ("up", "upsample")):
+        if name.startswith(kind) and name[len(kind)].isdigit():
+            level, _, rest = name[len(kind):].partition("_")
+            if rest == "conv":
+                return f"{side}.{kind}.{level}.{resample}.conv"
+            return f"{side}.{kind}.{level}.block.{rest[len('block'):]}"
+    return f"{side}.{name}"
+
+
+
+def _vqgan_key(path) -> str:
+    """The port key of the JAX ``VQModel`` params leaf at ``path``."""
+    if path[0] == "quantize":
+        return "quantize.embedding.weight"
+    if path[0] in ("encoder", "decoder"):
+        mod = [_vqgan_module_key(path[0], path[1])] + list(path[2:-1])
+    else:
+        mod = list(path[:-1])
+    return ".".join(mod + ["bias" if path[-1] == "bias" else "weight"])
+
+
+def vqgan_flax_to_state_dict(params: dict) -> dict:
+    """The state_dict of the port's ``models/diffusion/vqgan.VQModel``
+    holding the JAX package's ``VQModel`` params: conv kernels HWIO ->
+    OIHW, the attention's ``Dense`` kernels (I, O) -> 1x1 convs
+    (O, I, 1, 1), GroupNorm scale -> weight, the codebook as it is."""
+    sd = {}
+    for path, leaf in _flatten(params):
+        arr = np.asarray(leaf, np.float32)
+        if path[-1] == "kernel":
+            arr = (arr.T[:, :, None, None] if arr.ndim == 2
+                   else _kernel_to_torch(arr, False))
+        sd[_vqgan_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def vqgan_state_dict_to_flax(params_template: dict, state_dict: dict) -> dict:
+    """The inverse of ``vqgan_flax_to_state_dict`` in the layout of
+    ``params_template`` (a JAX ``VQModel`` params tree, or its shapes): the
+    port's tensors (weights, or their gradients) as numpy leaves."""
+    out: dict = {}
+    for path, leaf in _flatten(params_template):
+        t = state_dict[_vqgan_key(path)].detach().cpu().float().numpy()
+        if path[-1] == "kernel":
+            t = t[:, :, 0, 0].T if len(leaf.shape) == 2 else \
+                t.transpose(2, 3, 1, 0)
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(t)
+    return out
+
+
+def load_vqgan_flax(vq: nn.Module, params: dict):
+    """Load the JAX package's ``VQModel`` params into the port's
+    ``VQModel`` (strict)."""
+    sd = vqgan_flax_to_state_dict(params)
+    ref = vq.state_dict()
+    vq.load_state_dict({k: v.to(ref[k].device) for k, v in sd.items()},
+                       strict=True)
+    return vq

@@ -21,8 +21,11 @@ whole or partial, onto a fresh net:
   ``load_from``);
 - ``unet``: a milesial U-Net, transposed-conv or bilinear layout;
 
-and from the feature nets' upstream checkpoints (``utils/torch_port.py``
-:56-84 and :232-283 of the JAX package) onto ``models/vgg.py`` and
+the stage-1 pix2pix pair (``port_pix2pix_generator``,
+``port_pix2pix_discriminator``, :458-551 there) and the VQGAN first stage
+(``port_vqgan``, :84-163); and from the feature nets' upstream
+checkpoints (``utils/torch_port.py`` :56-84 and :232-283 of the JAX
+package) onto ``models/vgg.py`` and
 ``models/extractors.py``: torchvision's ``vgg16().features``
 (``port_vgg16_features``), the LPIPS linear layers (``port_vgg_lpips``,
 and with torchvision's ``alexnet`` ``port_alexnet_lpips``) and
@@ -244,6 +247,91 @@ def load_milesial(net: torch.nn.Module, sd: dict):
     net.load_state_dict(port_unet_milesial(sd))
     return net
 
+
+
+def pix2pix_generator_key_map(num_downs: int = 8) -> dict:
+    """{reference key: port key} for the reference ``UnetGenerator``
+    (``models_pix2pix/networks.py:553-617``) onto the port's
+    ``UnetGenerator``: the recursive ``UnetSkipConnectionBlock``
+    Sequentials, each named ``model``, whose indices depend on the block
+    kind (outermost: 0 downconv, 1 submodule, 3 ``Cell_upconv``; middle:
+    1 downconv, 2 downnorm, 3 submodule, 5 upconv, 6 upnorm; innermost: 1
+    downconv, 3 upconv, 4 upnorm), each ``Cell_upconv`` holding its k4/k6/k8
+    candidates at ``._ops._ops.{0,1,2}.op``
+    (``architecture_pix2pix/operations.py:4-40``). Depth d is the nesting
+    depth (d = 0 outermost), the port's ``down{d}``/``up{d}``. Every bias
+    key is in the map; the porter keeps those the checkpoint has (under
+    batch norm, the outermost up-conv's only)."""
+    keys = {}
+    base = "model.model."
+    for d in range(num_downs):
+        outermost, innermost = d == 0, d == num_downs - 1
+        if outermost:
+            down_i, up_i, norm_d, norm_u, sub_i = 0, 3, None, None, 1
+        elif innermost:
+            down_i, up_i, norm_d, norm_u, sub_i = 1, 3, None, 4, None
+        else:
+            down_i, up_i, norm_d, norm_u, sub_i = 1, 5, 2, 6, 3
+        for leaf in ("weight", "bias"):
+            keys[f"{base}{down_i}.{leaf}"] = f"down{d}.{leaf}"
+        if norm_d is not None:
+            keys.update(_bn(f"{base}{norm_d}", f"down_bn{d}"))
+        for i, k in enumerate((4, 6, 8)):
+            op = f"{base}{up_i}._ops._ops.{i}.op"
+            keys[f"{op}.weight"] = f"up{d}.kernel_{k}"
+            keys[f"{op}.bias"] = f"up{d}.bias_{k}"
+        if norm_u is not None:
+            keys.update(_bn(f"{base}{norm_u}", f"up_bn{d}"))
+        if sub_i is not None:
+            base = f"{base}{sub_i}.model."
+    return keys
+
+
+def port_pix2pix_generator(sd: dict, num_downs: int = 8) -> dict:
+    """A reference ``pix2pix_generator.pkl`` (``pix2pix_model.py:168-173``:
+    the DataParallel-wrapped ``state_dict``) -> the port's
+    ``UnetGenerator`` (the JAX package's ``port_pix2pix_generator``). The
+    layouts are torch's on both sides: keys are renamed, values kept."""
+    sd = _strip_module(sd)
+    keys = pix2pix_generator_key_map(num_downs)
+    return _take(sd, {k: v for k, v in keys.items() if k in sd})
+
+
+def pix2pix_discriminator_key_map(n_layers: int = 3) -> dict:
+    """{reference key: port key} for the reference ``NLayerDiscriminator``
+    (``networks.py:620-665``, a flat Sequential: conv0 at 0, then [conv,
+    norm, LeakyReLU] triplets, the head last)."""
+    keys = {"model.0.weight": "conv0.weight", "model.0.bias": "conv0.bias"}
+    idx = 2
+    for n in range(1, n_layers + 1):
+        keys[f"model.{idx}.weight"] = f"conv{n}.weight"
+        keys[f"model.{idx}.bias"] = f"conv{n}.bias"
+        keys.update(_bn(f"model.{idx + 1}", f"bn{n}"))
+        idx += 3
+    keys[f"model.{idx}.weight"] = "head.weight"
+    keys[f"model.{idx}.bias"] = "head.bias"
+    return keys
+
+
+def port_pix2pix_discriminator(sd: dict, n_layers: int = 3) -> dict:
+    """A reference ``pix2pix_discriminator.pkl`` -> the port's
+    ``NLayerDiscriminator`` (the JAX package's
+    ``port_pix2pix_discriminator``)."""
+    sd = _strip_module(sd)
+    keys = pix2pix_discriminator_key_map(n_layers)
+    return _take(sd, {k: v for k, v in keys.items() if k in sd})
+
+
+def port_vqgan(sd: dict) -> dict:
+    """A taming/BBDM ``VQModel`` checkpoint (the Template-LBBDM f4/f8/f16
+    first stages) -> the port's ``models/diffusion/vqgan.VQModel``, whose
+    names are taming's: the checkpoint's ``loss.*`` keys (its LPIPS and
+    discriminator) are dropped, the rest kept as float32 (the JAX
+    package's ``port_vqgan``, ``utils/torch_port.py:84-163``). Load the
+    result strictly."""
+    sd = _strip_module(sd)
+    return {k: torch.as_tensor(v).float() for k, v in sd.items()
+            if not k.startswith("loss.")}
 
 # torchvision vgg16().features' conv indices up to relu5_3
 VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)

@@ -91,7 +91,7 @@ def test_load_splits_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["deepict", "deepict_test", "nib",
                                   "b_subtilis", "omnipose", "diabetic",
-                                  "pix2pix_colorization"])
+                                  "bsubtilis"])
 def test_unported_families_raise(name, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_dataset(name, str(tmp_path))

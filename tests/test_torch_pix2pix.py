@@ -228,7 +228,11 @@ def test_cpu_train_checkpoint_starts_train_end2end(tmp_path):
     ckpt = os.path.join(tmp_path, cfg.run.name)
     assert sorted(os.listdir(ckpt)) == ["metrics.jsonl",
                                         train_pix2pix.DISCRIMINATOR_FILE,
-                                        train_pix2pix.GENERATOR_FILE]
+                                        train_pix2pix.GENERATOR_FILE,
+                                        "samples"]
+    # a sample grid every log_every steps (the JAX trainer's)
+    assert sorted(os.listdir(os.path.join(ckpt, "samples"))) == [
+        f"step{i}.png" for i in range(1, 6)]
     # the metric stream: one record per log_every steps, the losses
     with open(os.path.join(ckpt, "metrics.jsonl")) as f:
         stream = [json.loads(line) for line in f]

@@ -137,8 +137,22 @@ def test_bilinear_layout_and_msgpack_are_refused(folders, tmp_path):
     torch.save(bilinear, path)
     with pytest.raises(ValueError, match="bilinear"):
         load_seg_state(cfg, net, path)
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_seg_state(cfg, net, str(tmp_path / "unet_best.msgpack"))
+    # the JAX package's .msgpack ({'params', 'stats'}, as its
+    # load_seg_state reads it) now loads, through the weight bridge
+    from semantic_segmentation_tpu.utils.serialization import save_pytree
+    from semantic_segmentation_torch.utils.bridge import state_dict_to_flax
+    other = build_seg_problem(parse_config(_argv(folders) + [
+        "--run.seed=7"]), "cpu").net
+    assert any(not torch.equal(v, other.state_dict()[k])
+               for k, v in net.state_dict().items())
+    params, stats = state_dict_to_flax(other, other.state_dict())
+    mp = str(tmp_path / "unet_best.msgpack")
+    save_pytree({"params": params, "stats": stats}, mp)
+    _, loaded = load_seg_state(cfg, net, mp)
+    assert loaded
+    want = other.state_dict()
+    for k, v in net.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 def _bilinear_milesial(seed: int, published_widths: bool = False) -> dict:

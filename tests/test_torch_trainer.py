@@ -117,11 +117,12 @@ def test_hypergrad_none_leaves_arch(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--run.data_axis=data"],
                                   ["--model.tapmm_down=true"],
-                                  ["--preset=pix2pix_colorization"]])
+                                  ["--run.coordinator=localhost:1234"]])
 def test_unported_options_are_refused(argv):
     # an option the port does not implement yet fails loudly instead of
-    # being ignored (end2end_sivae, the third case until the soft-intro
-    # VAE was ported, now parses)
+    # being ignored (end2end_sivae and then pix2pix_colorization, the third
+    # case until the soft-intro VAE and colorization were ported, now
+    # parse; the parallel layer's coordinator is still refused)
     with pytest.raises(SystemExit, match="unknown"):
         parse_config(argv)
 
