@@ -21,7 +21,9 @@ Phases, each of which stops the script with a nonzero exit on failure:
      (the ISIC family's interleaved RGB: random bytes and an RGB
      generator's image at (2, 256, 256, 3) and (2, 224, 224, 3)), at hw
      off multiples of 16, on views 1 byte off a 16-byte boundary, and at
-     (64, 512, 512); each call one launch of one kernel;
+     (64, 512, 512), and the equalize at a data-parallel rank's shard of
+     the flagship's batch, (1, 256, 256, 1); each call one launch of one
+     kernel;
    - down-conv: bf16, within 1e-2 of the plain version's largest magnitude
      at the 9 flagship layers with C_in >= 8 (``bench.conv_down.LAYERS``;
      G_d5's last split-K range is shorter than the others), at M = 2, 8,
@@ -31,7 +33,7 @@ Phases, each of which stops the script with a nonzero exit on failure:
 4. the fake branch in context: warp -> threshold -> G -> min-max -> uint8 ->
    equalize -> gamma through the kernels and through the plain versions
    gives identical images;
-5. the engine on the card against the engine on the CPU: three iterations
+5. the engine on the card against the engine on the CPU: two iterations
    at 32^2 in float32 from the same seed, batches and augment matrices, in
    each of ``decay_only``, ``darts`` (the reference wiring) and ``unroll``
    (``end2end_nas``), and ``decay_only`` with DeepLabV3 at layers 1-1-1-1
@@ -45,8 +47,8 @@ Phases, each of which stops the script with a nonzero exit on failure:
    checkpoint files written, no kernel launched (the path has none);
 7. the flagship trainer from that checkpoint: ``--run.pretrained_pix2pix``
    gives G, D and the arch tables the saved values at the start; then
-   ``train()`` at full width (U-Net base 64), 20 iterations with
-   valid_step 10 (one steady chunk), in three modes, each path's launch
+   ``train()`` at full width (U-Net base 64), 10 iterations with
+   valid_step 5 (one steady chunk), in three modes, each path's launch
    counts zeroed before it and read after: the end2end_jsrt preset
    (``decay_only``: the warp and the equalize once per iteration), the
    same with ``--engine.hypergrad=darts`` (unroll and replay: each twice
@@ -57,7 +59,7 @@ Phases, each of which stops the script with a nonzero exit on failure:
    launch for each validation panel (G on the augmented first validation
    mask, written where the trainer steps the plateau: at every chunk
    boundary that crosses a multiple of the train split's size, counted as
-   the trainer decides it, ``flagship_panels``; two in 20 iterations at 7
+   the trainer decides it, ``flagship_panels``; one in 10 iterations at 7
    train items, and in every flagship-family run below likewise); finite
    losses, best_val and test Dice produced, the histogram and the
    down-conv never launched, and steady it/s and peak memory printed for
@@ -66,18 +68,18 @@ Phases, each of which stops the script with a nonzero exit on failure:
    PNG folders written under build/ from ``SyntheticSegDataset`` arrays (a
    JSRT layout of 16 pairs at 300^2, so that the loader resizes, and an
    OOD set of 8 pairs with the ``_mask`` suffix; PIL decodes them on the
-   host); the flagship (``decay_only``) trained from the folder for 20
+   host); the flagship (``decay_only``) trained from the folder for 10
    iterations with ``--data.n_test=7``, ``--data.ood_roots=sz:...`` and
-   ``--run.save_every=10`` (warp and equalize 20 launches, finite test and
-   OOD Dice, ``metrics.jsonl``, checkpoint steps 10 and 20; steady it/s and
+   ``--run.save_every=5`` (warp and equalize 10 launches, finite test and
+   OOD Dice, ``metrics.jsonl``, checkpoint steps 5 and 10; steady it/s and
    peak memory beside phase 7's); a second such run for the run-to-run
-   spread; resume: a 10-iteration run resumed at 10 runs nothing and holds
-   the saved engine and host state bit for bit, resumed to 20 its chunk's
+   spread; resume: a 5-iteration run resumed at 5 runs nothing and holds
+   the saved engine and host state bit for bit, resumed to 10 its chunk's
    losses and val score agree with the uninterrupted run within 4 x the
    spread of the uninterrupted runs, and the fast-forwarded batch-index
    streams equal the straight ones exactly; ``test_seg.run`` on the run's
    ``unet_best.pt`` gives the trainer's test and OOD Dice within 1e-6; and
-   ``train_unet`` for 20 steps on the folder (finite losses, best_val, a
+   ``train_unet`` for 10 steps on the folder (finite losses, best_val, a
    checkpoint, no kernel launched, its step rate);
 7c. the ISIC family (``semantic_segmentation_torch`` presets
    ``pix2pix_isic``, ``end2end_isic``, ``end2end_isic224``): (a) an
@@ -87,37 +89,37 @@ Phases, each of which stops the script with a nonzero exit on failure:
    3) for 10 steps from it, its checkpoint saved; (b) ``end2end_isic`` at
    full width (256^2, batch 2, unet_256, ngf = ndf = 64, U-Net base 64,
    bf16, ``decay_only``, ``--model.output_nc=3``, the photometric fake
-   chain, the Jaccard loss) from that checkpoint and folder for 20
+   chain, the Jaccard loss) from that checkpoint and folder for 10
    iterations: its test Jaccard at least 0.1 above an all-lesion net's
    (the net learnt the lesion), and ``test_seg`` on its ``unet_best.pt``
    gives the trainer's test Jaccard within 1e-6; (c) ``end2end_isic224``
    at full width on synthetic data (224^2, batch 2, resnet_9blocks ngf 64,
    D ndf 64, the lite Swin-UNet: embed 96, depths 2-2-2-2, heads
-   3-6-12-24, window 7, drop-path 0.2) for 20 iterations under the
+   3-6-12-24, window 7, drop-path 0.2) for 10 iterations under the
    preset's own ``darts`` (its hypergradient exactly 0 on every chunk),
-   then under ``decay_only`` for 20, four more ``decay_only`` runs and a
-   ``--model.use_checkpoint=true`` one of 10 iterations from the same seed
+   then under ``decay_only`` for 10, four more ``decay_only`` runs and a
+   ``--model.use_checkpoint=true`` one of 5 iterations from the same seed
    (the same draws): the darts run's and the recomputed run's losses after
-   10 iterations each within 4 x the largest relative gap between the
+   5 iterations each within 4 x the largest relative gap between the
    five ``decay_only`` runs' (the bound of 7b's resume check; the path is
    not bit-for-bit deterministic on the card).
    For (b) and (c): finite losses, steady it/s, peak bytes, and the warp
-   and equalize launches (one each per unet inner step: 20 and 20 in 20
-   iterations, 40 and 40 under ``darts``; histogram and down-conv 0);
+   and equalize launches (one each per unet inner step: 10 and 10 in 10
+   iterations, 20 and 20 under ``darts``; histogram and down-conv 0);
 7d. the segmenter zoo, at the same full width from phase 6's checkpoint:
    (a) the flagship (``end2end_jsrt``, ``decay_only``) with
-   ``--model.seg_model=deeplab`` (DeepLabV3, ResNet-50 at 3-4-6-3) for 20
-   iterations, twice for the run-to-run spread, and for 10 iterations
+   ``--model.seg_model=deeplab`` (DeepLabV3, ResNet-50 at 3-4-6-3) for 10
+   iterations, twice for the run-to-run spread, and for 5 iterations
    from a net one ulp away (one scale of the head's BN) for how far such a
    difference grows (finite losses, best_val and test Dice, warp and
    equalize one launch an iteration, histogram and down-conv 0; steady
    it/s and peak beside phase 7's); (b) remat: one iteration of the
    engine ``train()`` builds, from the same state with and without
    ``--model.remat=true``, gives the same losses and BN statistics bit for
-   bit and parameters within 20 lr; the same run as (a) with remat for 20
-   iterations has a lower peak (its losses after 10 are printed beside
+   bit and parameters within 20 lr; the same run as (a) with remat for 10
+   iterations has a lower peak (its losses after 5 are printed beside
    (a)'s spread and one-ulp gap, not held: the run is chaotic); and the
-   U-Net flagship with remat gives phase 7's losses after 20 iterations
+   U-Net flagship with remat gives phase 7's losses after 10 iterations
    bit for bit; (c) the engine ``train()``
    builds with
    ``--optim.accumulate=2``, stepped 10 iterations as ``train()`` steps
@@ -125,7 +127,7 @@ Phases, each of which stops the script with a nonzero exit on failure:
    (d) ``test_seg`` on (a)'s ``unet_best.pt`` gives (a)'s test Dice within
    1e-6, and ``export_seg`` writes it as a ``torch.export`` artifact (bf16,
    symbolic batch) whose loaded program agrees with the eager predict head
-   within 1e-5 at batches 1 and 3 on the card; (e) ``train_unet`` for 20
+   within 1e-5 at batches 1 and 3 on the card; (e) ``train_unet`` for 10
    steps with ``--model.seg_model=deeplabv2`` (ResNet-101, multi-grid,
    output stride 16) and with ``--model.bilinear=true`` (finite losses, a
    best_val, no kernel launched; steps/s and peak);
@@ -151,8 +153,8 @@ Phases, each of which stops the script with a nonzero exit on failure:
 7f. pixel-space BBDM at full width (the ADM denoiser at model_channels
    128, mult (1, 4, 8), 2 res blocks, its 21 NAS cells: 1,211,895,425
    parameters; 256^2, bf16 autocast, T = 1000 with the 200-step
-   sampler): (a) ``train_bbdm`` of the ``bbdm`` preset at batch 8 for 10
-   steps, validation every 5 (finite losses, steady steps/s, the peak;
+   sampler): (a) ``train_bbdm`` of the ``bbdm`` preset at batch 8 for 6
+   steps, validation every 3 (finite losses, steady steps/s, the peak;
    the final latest checkpoint, the whole trainer state, is written to
    disk, and of the top-k checkpoints and the two weight files only
    their tensors' bytes are counted (``CountedSaves``): the H100 host
@@ -236,6 +238,44 @@ Phases, each of which stops the script with a nonzero exit on failure:
    and ``decode`` within 1e-5 of the largest magnitude, the code indices
    equal, one ``train_step_ae``'s losses within 1e-4 relative. No kernel
    launches in 7i;
+7j. data parallelism (``parallel/``): (a) ``dp_engine_step`` on two ranks
+   that share the card (two child processes joined over gloo with CUDA
+   tensors: NCCL refuses two ranks on one device; ``launch.RankPool``,
+   ``parallel/harness.py``) at the full-width flagship (256^2, global
+   batch 2 so one row a rank, bf16) from phase 6's G, D and arch tables:
+   3 ``decay_only`` iterations and 1 ``unroll`` one (``end2end_nas``: the
+   inner gradients all-reduced inside the differentiated graph, the
+   min-max gradient across the ranks), each from one state with one set
+   of draws (the engine's generator at the global batch's shape); rank 0
+   runs the same iterations alone first (the collectives off, so that no
+   state crosses a process), and from the nets with every parameter one
+   ulp up and one ulp down (the spread: the largest gap of those two to
+   the first run; a repeat is bit for bit the same); the two ranks'
+   losses, ``arch_grad_norm`` and state gaps, each within 4x its own
+   spread: the parameters and the BN statistics (relative per leaf,
+   ``harness.state_gap``), the last step's averaged gradients (relative
+   to their norm) and the arch tables; the warp and the equalize launched on each
+   rank's (1, 256, 256, 1) as the mode runs them; it/s of both, each
+   rank's peak, and the
+   gradient all-reduces' bytes, calls and seconds an iteration (through
+   host memory under gloo: a correctness harness, not a speed figure);
+   (b) the flagship entry ``train_end2end.main`` (``python -m
+   semantic_segmentation_torch.train.train_end2end``) in a fresh process
+   at full width from phase 6's checkpoint for 10 iterations under
+   ``--run.multihost=true`` with a coordinator on this host, one process
+   and ``--run.data_axis=0``: a one-rank NCCL group, through which every
+   batch reduction and gradient all-reduce runs; against the plain run
+   from the same seed and configuration, phase 7's ``decay_only`` run:
+   every number logged at iteration 10 (the losses, the validation Dice)
+   equal (a group of one gives the plain values exactly), else within 4x
+   the spread of a plain run of the entry; steady it/s of both, the
+   launches; (c) the five in-memory families (fixtures written
+   with PIL, pickle and ``write_nifti`` under build/: 16 16-bit B.
+   subtilis TIFs of 300^2, 16 omnipose pairs, 8 diabetic 600^2 JPEGs, a
+   DeePiCt pickle, 8 NIfTI slices) decoded through ``make_dataset`` (the
+   seconds), then ``train_unet`` at full width (base 64, 256^2, batch 2)
+   for 10 steps from the B. subtilis folder and from the DeePiCt pickle
+   (steps/s, the peak, no kernel launched);
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -273,7 +313,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TRAIN_ITERS, MODE_ITERS, VALID_STEP, PIX2PIX_STEPS = 20, 20, 10, 20
+# the flagship family's runs: 10 iterations, validation every 5 (cut from
+# 20 and 10 to keep the script inside its time)
+TRAIN_ITERS, MODE_ITERS, VALID_STEP, PIX2PIX_STEPS = 10, 10, 5, 20
 SAVE_DIR = ROOT / "build" / "chip_smoke_run"
 # phase 8 runs in a child process: ``python3 chip_smoke.py --timing-child``
 # writes its kernel records and launch counts to TIMING_FILE
@@ -297,7 +339,7 @@ def check(cond, msg: str):
         fail(msg)
 
 
-def phase_kernels(torch, dev, G, arch):
+def phase_kernels(torch, dev, G, arch, all_checks: bool = True):
     import numpy as np
     import torch.nn.functional as F
 
@@ -420,10 +462,11 @@ def phase_kernels(torch, dev, G, arch):
     with torch.no_grad():
         g_out = G(fake_mask.permute(0, 3, 1, 2), arch).permute(0, 2, 3, 1)
     gen_img = image.to_uint8(image.minmax_normalize(g_out))
-    checked = phase_cluster_check(torch, dev, gen_img)
-    print(f"[kernels] equalize and histogram: bit-exact (histogram also "
-          f"against np.bincount), one launch per call, on "
-          f"{'; '.join(checked)}")
+    if all_checks:
+        checked = phase_cluster_check(torch, dev, gen_img)
+        print(f"[kernels] equalize and histogram: bit-exact (histogram also "
+              f"against np.bincount), one launch per call, on "
+              f"{'; '.join(checked)}")
     x = gen_img
     # one uint8 read + one written per pixel; a histogram add and a LUT
     # lookup per pixel, integer work counted at the f32 rate (the data
@@ -439,7 +482,23 @@ def phase_kernels(torch, dev, G, arch):
     timers["equalize_uint8"] = (
         "equalize_kernel", lambda: image.equalize_uint8(x),
         lambda: image.equalize_uint8_ref(x), None)
-    phase_conv_check(torch, dev)
+    # a data-parallel rank's shard of the flagship's global batch 2 (and
+    # the panel's shape): one image, (1, 256, 256, 1)
+    x1 = gen_img[:1].contiguous()
+    k1 = image.equalize_uint8(x1)
+    check(torch.equal(k1, image.equalize_uint8_ref(x1)),
+          "equalize (1, 256^2): differs from the plain version")
+    b1, why1 = bound_ms(2 * x1.numel(), 2 * x1.numel())
+    records["equalize_uint8"]["cases"] = [
+        {"case": "rank", "shape": [1, 256, 256, 1], "max_abs_err": 0.0,
+         "bound_ms": b1, "bound_by": why1}]
+    timers["equalize_uint8@rank"] = (
+        "equalize_kernel", lambda: image.equalize_uint8(x1),
+        lambda: image.equalize_uint8_ref(x1), None)
+    print("[kernels] equalize at a data-parallel rank's (1, 256, 256, 1): "
+          "bit-exact")
+    if all_checks:
+        phase_conv_check(torch, dev)
     return records, timers, gen_img
 
 
@@ -615,9 +674,9 @@ SMALL_ARGV = ["--data.synthetic=true", "--data.image_size=32",
 
 SMALL_MODES = {   # label: (extra argv, preset, arch tolerance card vs CPU,
                   # iterations)
-    "decay_only": ([], "end2end_jsrt", 1e-6, 3),
-    "darts": (["--engine.hypergrad=darts"], "end2end_jsrt", 1e-6, 3),
-    "unroll": ([], "end2end_nas", 1e-5, 3),
+    "decay_only": ([], "end2end_jsrt", 1e-6, 2),
+    "darts": (["--engine.hypergrad=darts"], "end2end_jsrt", 1e-6, 2),
+    "unroll": ([], "end2end_nas", 1e-5, 2),
     # DeepLabV3 at layers 1-1-1-1 (phase 7d's segmenter, cut in depth):
     # one iteration, since its BN over the pooled ASPP branch's two values
     # a channel lets RMSprop's first steps part the devices' trajectories
@@ -679,7 +738,7 @@ def _small_engine_run(torch, dev, argv, preset, iters):
 
 
 def phase_small_engine(torch, devices=("cpu", "cuda")):
-    """Three engine iterations at 32^2 in float32 in each of ``decay_only``,
+    """Two engine iterations at 32^2 in float32 in each of ``decay_only``,
     ``darts`` (the reference wiring) and ``unroll`` (``end2end_nas``), and
     one of ``decay_only`` with DeepLabV3, on the card and on the CPU (where every op takes its plain path, the path the
     CPU tests hold against the JAX package), from the same seed, batches and
@@ -827,9 +886,12 @@ def phase_trainer(torch, ckpt, label: str):
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.train.train_end2end import train
     preset, argv, iters, warps, equalizes = TRAINERS[label]
+    # no final checkpoint (3.7 GB, not read: phase 7b holds the saves):
+    # the card's host caps a call's disk writes
     cfg = parse_config(["--data.synthetic=true",
                         f"--engine.valid_step={VALID_STEP}",
                         f"--run.pretrained_pix2pix={ckpt}",
+                        "--run.final_checkpoint=false",
                         f"--run.save_dir={SAVE_DIR}"] + argv, preset=preset)
     m = cfg.model
     check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf, m.ndf,
@@ -877,6 +939,7 @@ def phase_trainer(torch, ckpt, label: str):
              "test_dice": results["test_dice"],
              "last_metrics": {k: results["chunks"][-1][k] for k in keys
                               if k in results["chunks"][-1]},
+             "chunks": results["chunks"],
              "panels": panels, "launches": launches}
     del engine
     torch.cuda.empty_cache()
@@ -924,6 +987,8 @@ def _folder_cfg(roots, ckpt, name: str, *extra):
                          f"--data.ood_roots=sz:{roots['sz']}:_mask",
                          f"--engine.valid_step={VALID_STEP}",
                          f"--run.save_every={VALID_STEP}",
+                         # the last save_every one is the final state
+                         "--run.final_checkpoint=false",
                          f"--run.pretrained_pix2pix={ckpt}",
                          f"--run.save_dir={SAVE_DIR}", f"--run.name={name}",
                          *extra], preset="end2end_jsrt")
@@ -998,7 +1063,8 @@ def phase_real_data(torch, ckpt, synthetic: dict):
           "folder: metrics.jsonl not written")
     steps = sorted(int(s.name) for s in (run_dir / "ckpt").iterdir()
                    if s.name.isdigit())
-    check(steps == [10, 20], f"folder: checkpoint steps {steps}")
+    check(steps == [VALID_STEP, TRAIN_ITERS],
+          f"folder: checkpoint steps {steps}")
     its = run_a["chunks"][1]["iters"] / run_a["chunks"][1]["seconds"]
     stats = {"iters": TRAIN_ITERS, "wall_s": wall,
              "data_write_s": data_s,
@@ -1051,7 +1117,8 @@ def phase_real_data(torch, ckpt, synthetic: dict):
     check(run_r["best_val"] == saved["host"]["best_val"],
           "resume (a): best_val differs")
     del engine, saved
-    print("[resume] (a) resumed at iteration 10: no iteration ran; "
+    print(f"[resume] (a) resumed at iteration {VALID_STEP}: no iteration "
+          "ran; "
           "parameters, BN buffers, optimizer states, arch tables, both "
           "generators, best_val, the plateau and the best U-Net equal the "
           "checkpoint bit for bit")
@@ -1088,7 +1155,8 @@ def phase_real_data(torch, ckpt, synthetic: dict):
     check(max(gaps.values()) <= bound,
           f"resume (b): relative gaps {gaps} beyond {bound:.3e}")
     shutil.rmtree(SAVE_DIR / "folder-c")
-    print(f"[resume] (b) resumed to 20: largest relative gap to the "
+    print(f"[resume] (b) resumed to {TRAIN_ITERS}: largest relative gap "
+          f"to the "
           f"uninterrupted run {max(gaps.values()):.3e} (<= {bound:.3e}); "
           f"the fast-forwarded batch-index streams equal the straight ones")
     stats.update(resume_spread=spread, resume_bound=bound,
@@ -1138,7 +1206,7 @@ def phase_real_data(torch, ckpt, synthetic: dict):
 
 ISIC_DIR = DATA_DIR / "isic"
 ISIC_SPLIT = ["--data.n_train=16", "--data.n_val=4"]
-ISIC_PIX2PIX_STEPS, ISIC_CKPT_ITERS = 10, 10
+ISIC_PIX2PIX_STEPS, ISIC_CKPT_ITERS = 10, 5
 ISIC_LOSSES = ("loss_netG", "loss_netD", "loss_unet", "replay_loss_netG",
                "replay_loss_netD", "replay_loss_unet")
 
@@ -1371,7 +1439,7 @@ def phase_isic(torch):
 
 ZOO_LOSSES = ("loss_netG", "loss_netD", "loss_unet", "replay_loss_netG",
               "replay_loss_netD", "replay_loss_unet")
-ZOO_ACCUMULATE_ITERS, ZOO_UNET_STEPS = 10, 20
+ZOO_ACCUMULATE_ITERS, ZOO_UNET_STEPS = 10, 10
 
 
 def _zoo_cfg(ckpt, name: str, *extra, seg_model: str = "deeplab"):
@@ -1381,6 +1449,7 @@ def _zoo_cfg(ckpt, name: str, *extra, seg_model: str = "deeplab"):
                         f"--model.seg_model={seg_model}",
                         f"--engine.valid_step={VALID_STEP}",
                         f"--run.pretrained_pix2pix={ckpt}",
+                        "--run.final_checkpoint=false",     # not read
                         f"--run.save_dir={SAVE_DIR}", f"--run.name={name}",
                         *extra], preset="end2end_jsrt")
     m = cfg.model
@@ -1576,7 +1645,8 @@ def _zoo_export(torch, cfg, best: Path, dev="cuda"):
 
 
 def _zoo_train_unet(torch, label: str, extra, dev="cuda"):
-    """(e): ``train_unet`` for 20 steps on synthetic data."""
+    """(e): ``train_unet`` for ``ZOO_UNET_STEPS`` steps on synthetic
+    data."""
     from semantic_segmentation_torch import kernels
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.train import train_unet
@@ -2411,7 +2481,7 @@ class CountedSaves:
 # 256^2, bf16 autocast, T = 1000 with the 200-step sampler
 RUNBBDM = ROOT / "build" / "chip_smoke_bbdm"
 BBDM_DEV = "cuda"
-BBDM_STEPS, BBDM_VALID, E2EB_ITERS, E2EB_FAKE_ITERS = 10, 5, 10, 1
+BBDM_STEPS, BBDM_VALID, E2EB_ITERS, E2EB_FAKE_ITERS = 6, 3, 10, 1
 BBDM_CKPT = RUNBBDM / "bbdm" / "ckpt"  # (a)'s latest: the one file written
 BBDM_ARGV = ["--preset=bbdm", "--data.synthetic=true", "--data.n_train=16",
              "--data.n_val=8", "--data.n_test=2",
@@ -2429,8 +2499,8 @@ def _check_full_bbdm(net, compute_dtype: str, label: str):
 
 
 def _bbdm_train(torch, saves: CountedSaves) -> dict:
-    """(a) ``train_bbdm --preset=bbdm`` at batch 8, 10 steps, validation
-    every 5: steady steps/s, peak, finite losses, the latest checkpoint
+    """(a) ``train_bbdm --preset=bbdm`` at batch 8, 6 steps, validation
+    every 3: steady steps/s, peak, finite losses, the latest checkpoint
     (written to disk), the top-k checkpoints and the weight files
     (their tensors' bytes counted by ``saves``)."""
     from semantic_segmentation_torch import kernels
@@ -3198,6 +3268,402 @@ def phase_lbbdm(torch) -> dict:
     return out
 
 
+# -- 7j. data parallelism ------------------------------------------------------
+
+DP_DIR = ROOT / "build" / "chip_smoke_dp"
+NCCL_ARG = "--nccl-child"
+# mode -> (preset, iterations) of the two-rank harness (a)
+DP_MODES = {"decay_only": ("end2end_jsrt", 3), "unroll": ("end2end_nas", 1)}
+DP_ENTRY_ITERS, DP_ENTRY_VALID = 10, 5
+DP_DEV = "cuda"
+DP_ARGV = ("--data.synthetic=true", f"--run.device={DP_DEV}")
+
+
+def _dp_steps(cfg, iters: int) -> list:
+    """``iters`` global engine steps (batch_stack, val_batch, no injected
+    draws) from the trainer's own index streams, on the CPU."""
+    from semantic_segmentation_torch.data.pipeline import (take_batch,
+                                                           to_device_split)
+    from semantic_segmentation_torch.train.common import load_splits
+    from semantic_segmentation_torch.train.train_end2end import index_streams
+    splits = load_splits(cfg)
+    tr = to_device_split(splits["train"], "cpu")
+    va = to_device_split(splits["val"], "cpu")
+    streams, val_stream = index_streams(cfg, len(splits["train"]["image"]),
+                                        len(splits["val"]["image"]))
+    return [([{n: take_batch(tr, next(s)) for n, s in streams.items()}],
+             take_batch(va, next(val_stream)), None) for _ in range(iters)]
+
+
+def _dp_rel(a: list, b: list, keys) -> float:
+    """The largest relative gap of ``keys`` between two runs' per-step
+    metrics."""
+    return max((abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                for x, y in zip(a, b) for k in keys), default=0.0)
+
+
+def phase_dp_ranks(torch, ckpt) -> dict:
+    """7j (a): ``dp_engine_step`` on two ranks that share the one card
+    (gloo with CUDA tensors: NCCL refuses two ranks on one device), at the
+    full-width flagship (256^2, batch 2 so one row a rank, bf16), from
+    phase 6's G, D and arch tables: 3 ``decay_only`` iterations and 1
+    ``unroll`` one (``end2end_nas``: the in-graph all-reduce of the inner
+    gradients and the min-max gradient across the ranks), each from one
+    state with one set of draws (the engine's generator, at the global
+    batch's shape). Rank 0 first runs the same iterations alone, the
+    collectives off (``harness.alone_and_on_ranks``: a state of 2.4 GB
+    would take some 50 s to cross a pipe), then from the nets with every
+    parameter one ulp up and one ulp down (a repeat is bit for bit the
+    same): the spread, the largest gap of those runs to the first. The
+    two ranks' losses, ``arch_grad_norm`` and state gaps
+    (``harness.state_gap``: the parameters and the BN statistics relative
+    per leaf, the last step's averaged gradients relative to their norm,
+    the arch tables) must each lie within 4x its own spread; the
+    gradients' gap per leaf is printed. Prints it/s of both,
+    each rank's peak, and the gradient all-reduces' bytes and seconds an
+    iteration (through host memory under gloo: a correctness harness, not
+    a speed figure)."""
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.parallel import harness
+    from semantic_segmentation_torch.parallel.launch import RankPool
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    argv = tuple(DP_ARGV) + (f"--run.pretrained_pix2pix={ckpt}",)
+    out = {}
+    t_pool = time.perf_counter()
+    with RankPool(2, DP_DEV, backend="gloo", timeout=900.0, threads=4,
+                  workdir=str(DP_DIR)) as pool:
+        pool_s = time.perf_counter() - t_pool
+        for mode, (preset, iters) in DP_MODES.items():
+            cfg = parse_config(list(argv), preset=preset)
+            m = cfg.model
+            check((cfg.data.image_size, cfg.data.batch_size, m.netG, m.ngf,
+                   m.ndf, m.base_features, m.compute_dtype,
+                   cfg.engine.hypergrad) ==
+                  (256, 2, "unet_256", 64, 64, 64, "bfloat16", mode),
+                  f"7j {mode}: not the full-width {preset} configuration")
+            # every run starts from the nets as built (phase 6's G, D and
+            # arch tables, the seed's U-Net), which each rank builds
+            rec = pool.run(harness.alone_and_on_ranks, argv, preset, DP_DEV,
+                           _dp_steps(cfg, iters))
+            one, runs, two = rec["one"], rec["nudged"], rec["two"]
+            check(one["world"] == 1 and two["world"] == 2,
+                  f"7j {mode}: {one['world']} and {two['world']} ranks")
+            loss_keys = [k for k in one["metrics"][0]
+                         if k != "arch_grad_norm"]
+
+            def gaps(r):
+                g = {"losses": _dp_rel(r["metrics"], one["metrics"],
+                                       loss_keys), **r["state_gap"]}
+                if mode == "unroll":
+                    g["arch_grad_norm"] = _dp_rel(
+                        r["metrics"], one["metrics"], ["arch_grad_norm"])
+                return g
+            gap, by_run = gaps(two), [gaps(r) for r in runs]
+            spread = {k: max(g[k] for g in by_run) for k in gap}
+            if mode == "unroll":
+                check(all(math.isfinite(r["arch_grad_norm"]) and
+                          r["arch_grad_norm"] > 0 for r in two["metrics"]),
+                      f"7j unroll: arch_grad_norm {two['metrics']}")
+            for r in (one, two):
+                for mt in r["metrics"]:
+                    check(all(math.isfinite(v) for v in mt.values()),
+                          f"7j {mode}: a metric is not finite: {mt}")
+            # not held: a gradient leaf of one element (PatchGAN's head
+            # bias) carries the bf16 rounding of the convolutions, whose
+            # algorithms at one row a rank the one-ulp runs do not sample
+            for k, g in gap.items():
+                if k == "grads_leaf":
+                    continue
+                check(g <= 4.0 * spread[k],
+                      f"7j {mode}: two ranks {k} gap {g:.3e} above 4x the "
+                      f"single-process spread {spread[k]:.3e}")
+            warps, equalizes = (1, 1) if mode == "decay_only" else (3, 0)
+            want = {"warp_affine": warps * iters,
+                    "equalize_uint8": equalizes * iters,
+                    "histogram256": 0, "conv_down4": 0}
+            check(two["launches"] == one["launches"] == want,
+                  f"7j {mode}: launches rank 0 {two['launches']}, one "
+                  f"process {one['launches']}, not {want}")
+            ga = two["grad_allreduce"]
+            out[f"dp_gloo_{mode}"] = {
+                "preset": preset, "iters": iters,
+                "it_per_s_two_ranks": iters / sum(two["seconds"]),
+                "it_per_s_one_process": iters / sum(one["seconds"]),
+                "step_s_two_ranks": two["seconds"],
+                "peak_bytes_per_rank": two["peak_bytes"],
+                "peak_bytes_one_process": one["peak_bytes"][0],
+                "grad_allreduce_bytes_per_iter": ga["bytes"] / iters,
+                "grad_allreduce_s_per_iter": ga["seconds"] / iters,
+                "grad_allreduce_calls_per_iter": ga["calls"] / iters,
+                "gap": gap, "spread": spread,
+                "spread_by_run": dict(zip(("one_ulp_up", "one_ulp_down"),
+                                          by_run)),
+                "alone_runs_s": rec["alone_s"], "two_ranks_s": rec["ranks_s"],
+                "last_metrics": two["metrics"][-1],
+                "launches": two["launches"]}
+    out["dp_gloo_decay_only"]["pool_start_s"] = pool_s
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_child(torch, out_file: str, argv: list) -> int:
+    """The real flagship entry, ``train_end2end.main(argv)``, in this fresh
+    process; its kernel launches, the process group and the gradient
+    all-reduces to ``out_file``."""
+    import torch.distributed as dist
+
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.parallel import collectives
+    from semantic_segmentation_torch.train import train_end2end
+    kernels.reset_launches()
+    collectives.reset_grad_stats(False)
+    t0 = time.perf_counter()
+    train_end2end.main(argv)
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "launches": dict(kernels.LAUNCHES),
+           "grad_allreduce": {k: collectives.GRAD_STATS[k]
+                              for k in ("calls", "bytes", "seconds")},
+           "backend": dist.get_backend() if dist.is_initialized() else None,
+           "world": dist.get_world_size() if dist.is_initialized() else 0,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    Path(out_file).write_text(json.dumps(rec))
+    return 0
+
+
+def _entry_run(name: str, ckpt, *extra) -> tuple[dict, list]:
+    """``train_end2end.main`` in a child process (``nccl_child``): its
+    record and its metric stream."""
+    run_dir = DP_DIR / "entry"
+    shutil.rmtree(run_dir / name, ignore_errors=True)
+    rec_file = DP_DIR / f"{name}.json"
+    rec_file.unlink(missing_ok=True)
+    argv = ["--preset=end2end_jsrt", "--data.synthetic=true",
+            f"--run.pretrained_pix2pix={ckpt}",
+            "--run.final_checkpoint=false",     # 3.7 GB each, not read
+            f"--engine.train_iters={DP_ENTRY_ITERS}",
+            f"--engine.valid_step={DP_ENTRY_VALID}",
+            f"--run.save_dir={run_dir}", f"--run.name={name}", *extra]
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         NCCL_ARG, str(rec_file), *argv]).returncode
+    check(rc == 0 and rec_file.is_file(), f"7j {name}: the child exited {rc}")
+    stream = [json.loads(line) for line in
+              (run_dir / name / "metrics.jsonl").read_text().splitlines()]
+    return json.loads(rec_file.read_text()), stream
+
+
+def phase_dp_nccl(torch, ckpt, flagship: dict) -> dict:
+    """7j (b): the flagship entry ``python -m
+    semantic_segmentation_torch.train.train_end2end`` (its ``main``, in a
+    fresh process) at full width from phase 6's checkpoint for 10
+    iterations under ``--run.multihost=true`` with a coordinator on this
+    host, one process and ``--run.data_axis=0``: the group is up, so every
+    batch reduction and gradient all-reduce goes through NCCL over one
+    rank. Held against the plain run from the same seed, phase 7's
+    ``end2end_trainer`` (``flagship``, the same configuration): every
+    number it logged at iteration 10 (the losses, ``arch_grad_norm``, the
+    validation Dice) equal, else (a plain run of the entry for the spread)
+    within 4x the run-to-run spread; it/s of both."""
+    from semantic_segmentation_torch.core.config import parse_config
+    dp = ["--run.multihost=true",
+          f"--run.coordinator=127.0.0.1:{_free_port()}",
+          "--run.num_processes=1", "--run.process_id=0", "--run.data_axis=0"]
+    nccl, s_nccl = _entry_run("nccl", ckpt, *dp)
+    check(nccl["backend"] == "nccl" and nccl["world"] == 1,
+          f"7j nccl: the group is {nccl['backend']} of {nccl['world']}")
+    iters = DP_ENTRY_ITERS
+    check(nccl["grad_allreduce"]["calls"] >= 3 * iters,
+          f"7j nccl: {nccl['grad_allreduce']['calls']} gradient all-reduces "
+          f"in {iters} iterations")
+    cfg = parse_config(["--data.synthetic=true",
+                        f"--engine.valid_step={DP_ENTRY_VALID}"],
+                       preset="end2end_jsrt")
+    want = {"warp_affine": iters + flagship_panels(cfg, iters),
+            "equalize_uint8": iters, "histogram256": 0, "conv_down4": 0}
+    check(nccl["launches"] == want,
+          f"7j nccl: launches {nccl['launches']}, not {want}")
+    plain = next((c for c in flagship["chunks"] if c["it"] == iters), None)
+    check(plain is not None, f"7j nccl: phase 7 logged no chunk at {iters}")
+    at = next(r for r in s_nccl if r.get("step") == iters
+              and "val_score" in r)
+    keys = [k for k in plain if k in at and k not in
+            ("it", "iters", "seconds")]
+    check("loss_unet" in keys and "val_score" in keys,
+          f"7j nccl: compared {keys}")
+
+    def gap(run):
+        return max(abs(run[k] - plain[k]) / max(abs(plain[k]), 1e-30)
+                   for k in keys)
+    rel, spread = gap(at), None
+    if rel > 0.0:
+        _, s_plain = _entry_run("plain", ckpt)
+        spread = gap(next(r for r in s_plain if r.get("step") == iters
+                          and "val_score" in r))
+        check(rel <= 4.0 * spread, f"7j nccl: {rel:.3e} from the plain "
+              f"run, above 4x the spread {spread:.3e}")
+    its = [r["iters_per_sec"] for r in s_nccl if "iters_per_sec" in r]
+    return {"dp_nccl_entry": {
+        "iters": iters, "compared": keys, "equal": rel == 0.0,
+        "largest_rel_gap": rel, "spread": spread,
+        "steady_it_per_s_nccl": its[-1],
+        "steady_it_per_s_plain": flagship["steady_it_per_s"],
+        "wall_s_nccl": nccl["wall_s"],
+        "grad_allreduce": nccl["grad_allreduce"],
+        "peak_bytes_nccl": nccl["peak_bytes"],
+        "peak_bytes_plain": flagship["peak_mem_bytes"],
+        "launches": nccl["launches"]}}
+
+
+FAMILY_DIR = DATA_DIR / "families"
+
+
+def write_family_fixtures() -> dict:
+    """Folders of the five in-memory families under build/: B. subtilis
+    (16 16-bit TIFs of 300^2 and their boundary masks), omnipose (16
+    ``*_img.tif``/``*_masks.tif`` pairs), diabetic (8 RGB JPEGs of 600^2
+    and PNG masks), a DeePiCt pickle (16 train and 4 test 256^2 items)
+    and NIfTI slices (8 of 256^2); {key: the path make_dataset takes}."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from semantic_segmentation_torch.data.nifti import write_nifti
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:300, :300]
+
+    def blobs(n=6, size=300):
+        m = np.zeros((size, size), bool)
+        for _ in range(n):
+            cy, cx, r = rng.integers(30, size - 30, 2).tolist() + [
+                int(rng.integers(10, 30))]
+            m |= (yy[:size, :size] - cy) ** 2 + (xx[:size, :size] - cx) ** 2 \
+                < r * r
+        return m
+
+    bs = FAMILY_DIR / "b_subtilis"
+    (bs / "source").mkdir(parents=True)
+    (bs / "target_boundaries").mkdir()
+    om = FAMILY_DIR / "omnipose"
+    om.mkdir()
+    for i in range(16):
+        m = blobs()
+        img = (1000 + 20000 * m + rng.normal(0, 800, m.shape)).clip(0, 65535)
+        Image.fromarray(img.astype(np.uint16)).save(
+            bs / "source" / f"cell{i:02d}.tif")
+        Image.fromarray((m * 255).astype(np.uint8)).save(
+            bs / "target_boundaries" / f"cell{i:02d}.tif")
+        Image.fromarray((img / 257).astype(np.uint8)).save(
+            om / f"s{i:02d}_img.tif")
+        Image.fromarray((m * 200).astype(np.uint8)).save(
+            om / f"s{i:02d}_masks.tif")
+    di = FAMILY_DIR / "diabetic"
+    di.mkdir()
+    for i in range(8):
+        m = blobs(4, 300)
+        rgb = np.stack([120 + 90 * m, 60 + 40 * m, 30 + 20 * m], -1)
+        rgb = (rgb + rng.normal(0, 12, rgb.shape)).clip(0, 255)
+        Image.fromarray(rgb.astype(np.uint8)).resize((600, 600)).save(
+            di / f"d{i}_img.jpg")
+        Image.fromarray((m * 255).astype(np.uint8)).resize(
+            (600, 600), Image.NEAREST).save(di / f"d{i}.png")
+    masks = np.stack([blobs()[22:278, 22:278] for _ in range(20)])
+    feats = masks * 0.6 + rng.normal(0.2, 0.1, masks.shape)
+    pkl = FAMILY_DIR / "deepict.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"train_features": feats[:16, ..., None].astype(
+                         np.float32),
+                     "train_labels": masks[:16, ..., None].astype(np.float32),
+                     "test_features": feats[16:, ..., None].astype(
+                         np.float32),
+                     "test_labels": masks[16:, ..., None].astype(np.float32)},
+                    f)
+    nib = FAMILY_DIR / "nib"
+    (nib / "Images").mkdir(parents=True)
+    (nib / "Masks").mkdir()
+    for i in range(8):
+        write_nifti(str(nib / "Images" / f"v{i}.nii.gz"),
+                    feats[i, ..., None].astype(np.float32))
+        write_nifti(str(nib / "Masks" / f"v{i}.nii.gz"),
+                    masks[i, ..., None].astype(np.float32))
+    return {"b_subtilis": bs, "omnipose": om, "diabetic": di,
+            "deepict": pkl, "deepict_test": pkl, "nib": nib}
+
+
+def phase_families(torch) -> dict:
+    """7j (c): the five in-memory families, fixtures written with PIL,
+    pickle and ``write_nifti``: each decoded through ``make_dataset`` (the
+    seconds, the items' shapes, binary masks), then ``train_unet`` at full
+    width (U-Net base 64, 256^2, batch 2, bf16) for 10 steps, validation
+    every 5, from the B. subtilis folder and from the DeePiCt pickle:
+    finite losses, a best_val, no kernel launched; steps/s of the second
+    interval and the peak."""
+    import numpy as np
+
+    from semantic_segmentation_torch import kernels
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.data.folder import make_dataset
+    from semantic_segmentation_torch.train import train_unet
+    t0 = time.perf_counter()
+    roots = write_family_fixtures()
+    out = {"fixtures_s": time.perf_counter() - t0}
+    for key, root in roots.items():
+        t0 = time.perf_counter()
+        ds = make_dataset(key, str(root))
+        items = [ds[i] for i in range(len(ds))]
+        secs = time.perf_counter() - t0
+        check(items and all(np.isfinite(it["image"]).all() for it in items),
+              f"7j {key}: no finite items")
+        if key != "nib":
+            check(all(set(np.unique(it["mask"])) <= {0, 1} for it in items),
+                  f"7j {key}: masks not binary")
+        out[f"decode_{key}"] = {"items": len(items), "seconds": secs,
+                                "image_shape": list(items[0]["image"].shape)}
+    for key in ("b_subtilis", "deepict"):
+        cfg = parse_config([
+            f"--data.dataset={key}", f"--data.dataroot={roots[key]}",
+            "--data.image_size=256", "--data.n_train=12", "--data.n_val=2",
+            "--data.n_test=2", "--engine.valid_step=5",
+            f"--run.save_dir={DP_DIR}", f"--run.name=unet_{key}"])
+        check((cfg.model.base_features, cfg.data.batch_size,
+               cfg.model.compute_dtype) == (64, 2, "bfloat16"),
+              f"7j train_unet {key}: not the full-width configuration")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        # its checkpoints counted, not written: the card's host caps a
+        # call's disk writes (CountedSaves)
+        with CountedSaves(torch, None) as saves:
+            _, res = train_unet.train(cfg, train_iters=10, device=DP_DEV)
+        launches = dict(kernels.LAUNCHES)
+        check(not any(launches.values()),
+              f"7j train_unet {key}: launches {launches}")
+        check(len(res["log"]) == 2 and all(math.isfinite(r["loss"])
+                                           for r in res["log"])
+              and math.isfinite(res["best_val"]),
+              f"7j train_unet {key}: {res}")
+        steady = res["log"][-1]
+        out[f"train_unet_{key}"] = {
+            "steps_per_s": steady["steps"] / steady["seconds"],
+            "first_interval_s": res["log"][0]["seconds"],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "best_val": res["best_val"], "test_dice": res.get("test_dice"),
+            "checkpoint_bytes_counted": sum(f["bytes"] for f in saves.files),
+            "launches": launches}
+    return out
+
+
 def phase_benches(torch, records, gen_img):
     """The two benchmark entry points, each the path of one more kernel:
     ``bench.kernels`` (the histogram, at (4, 256, 256), then the cluster
@@ -3235,8 +3701,9 @@ def phase_benches(torch, records, gen_img):
         "call_ms": h["call_ms"], "wrapper_call_ms": h["wrapper_call_ms"],
         "plain_ms": h["plain_ms"], "library_ms": None, "bound_ms": b,
         "bound_us": b * 1e3, "bound_by": why, "shape": h["shape"]}
-    for name in ("equalize_uint8", "histogram256"):
-        records[name]["cases"] = [c for c in cases if c["kernel"] == name]
+    for name in ("equalize_uint8", "histogram256"):    # after phase 3's
+        records[name]["cases"] = records[name].get("cases", []) + [
+            c for c in cases if c["kernel"] == name]
 
     kernels.reset_launches()
     rows, summary = conv_down.run(
@@ -3284,14 +3751,16 @@ def _generator(torch, dev):
 
 
 def timing_child(torch) -> int:
-    """Phase 8 in this (fresh) process: phase 3's checks make the inputs,
-    then the kernel timing and the benchmark paths; the records and each
-    path's launch counts go to TIMING_FILE."""
+    """Phase 8 in this (fresh) process: phase 3's warp and equalize checks
+    make the inputs (its cluster and down-conv checks ran in phase 3 of
+    this call), then the kernel timing and the benchmark paths; the
+    records and each path's launch counts go to TIMING_FILE."""
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     G, arch = _generator(torch, dev)
-    records, timers, gen_img = phase_kernels(torch, dev, G, arch)
+    records, timers, gen_img = phase_kernels(torch, dev, G, arch,
+                                             all_checks=False)
     del G
     torch.backends.cudnn.allow_tf32 = True     # the trainer's defaults
     torch.cuda.empty_cache()
@@ -3356,6 +3825,8 @@ def main() -> int:
         return timing_child(torch)
     if sys.argv[1:2] == [BBDM_ARG]:
         return bbdm_child(torch, float(sys.argv[2]))
+    if sys.argv[1:2] == [NCCL_ARG]:
+        return nccl_child(torch, sys.argv[2], sys.argv[3:])
     from semantic_segmentation_torch.bench.timing import card_line
 
     # each phase's wall seconds (the script must end within 1,200 s)
@@ -3475,6 +3946,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("7h")
+    # 7j. data parallelism: two gloo ranks on the card against one process,
+    # the real entry over NCCL at world size 1, the in-memory families
+    for label, stats in [*phase_dp_ranks(torch, ckpt).items(),
+                         *phase_dp_nccl(torch, ckpt, trainer_stats[
+                             "end2end_trainer"]).items()]:
+        print(f"[{label}] {card}: " + json.dumps(stats))
+        paths[label] = stats["launches"]
+    torch.cuda.empty_cache()
+    for label, stats in phase_families(torch).items():
+        print(f"[families {label}] {card}: " + json.dumps(stats))
+        if isinstance(stats, dict) and "launches" in stats:
+            paths[label] = stats["launches"]
+    torch.cuda.empty_cache()
+
+    lap("7j")
     # 8. timing and the benchmark paths, in a fresh process
     records, bench_paths = run_timing_child()
     paths.update(bench_paths)

@@ -26,6 +26,8 @@ from typing import Any
 
 import torch
 
+from semantic_segmentation_torch.parallel.collectives import is_main
+
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
 
@@ -69,8 +71,11 @@ class CheckpointManager:
         """Write ``state`` as step ``step`` with its ``metrics``, then drop
         the steps retention does not keep. ``force`` is the JAX manager's
         (it overrides orbax's save-interval policy): this manager has no
-        such policy and writes every save."""
+        such policy and writes every save. Under data parallelism rank 0
+        alone writes (every rank holds the same state)."""
         del force
+        if not is_main():
+            return
         tmp = os.path.join(self._dir, f".tmp-{step}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)

@@ -154,6 +154,19 @@ class RunConfig:
     profile_dir: str = ""            # torch.profiler Chrome trace dir
                                      # ('' = off)
     device: str = "cuda"             # entry points run here; 'cpu' on request
+    data_axis: int = 1               # data-parallel mesh size: 1 = off,
+                                     # 0 = all visible cards, n = first n
+                                     # (batch_size must divide the mesh
+                                     # size; parallel/mesh.py)
+    multihost: bool = False          # join the process group of a
+                                     # multi-process launch at entry (the
+                                     # DDP launcher, BBDM/main.py:70-87);
+                                     # the group is then the data axis
+    coordinator: str = ""            # host:port of rank 0, with
+    num_processes: int = 0           # the process count and this
+    process_id: int = -1             # process's id; '' / 0 / -1 = read
+                                     # torchrun's MASTER_ADDR, MASTER_PORT,
+                                     # WORLD_SIZE and RANK
     spatial_axis: int = 1            # 3D spatial-parallel mesh size; only
                                      # 1 (off) is ported
     amp: bool = True                 # kept for CLI familiarity (a no-op,
@@ -244,22 +257,11 @@ PRESETS: dict[str, dict[str, Any]] = {
                       "run.name": "end2end-sivae"},
 }
 
-# options of the JAX package's config that the port refuses as unknown,
-# and the ROADMAP.md section 1 item that ports each
-NOT_PORTED = {"run.data_axis": 13, "run.multihost": 13,
-              "run.coordinator": 13, "run.num_processes": 13,
-              "run.process_id": 13}
-
-
 def _set_by_path(cfg: Config, path: str, raw: str | Any):
     section, _, leaf = path.partition(".")
     obj: Any = getattr(cfg, section, None)
     by_name = {f.name: f for f in fields(obj)} if obj is not None else {}
     if leaf not in by_name:
-        if path in NOT_PORTED:
-            raise SystemExit(f"unknown option --{path}: not ported yet "
-                             f"(ROADMAP.md section 1, item {NOT_PORTED[path]}"
-                             ": the parallel layer)")
         raise SystemExit(f"unknown option --{path} (the port has no such "
                          "field, or does not implement it yet)")
     value = raw
@@ -302,11 +304,12 @@ def parse_config(argv: list[str] | None = None, preset: str | None = None) -> Co
 
 def check_spatial_axis(cfg: Config):
     """Refuse ``run.spatial_axis`` other than 1: the spatial-parallel mesh
-    belongs to the parallel layer, not ported yet."""
+    belongs to the second half of the parallel layer, not ported yet."""
     if cfg.run.spatial_axis != 1:
         raise NotImplementedError(
             f"run.spatial_axis={cfg.run.spatial_axis} is not ported yet "
-            "(ROADMAP.md section 1, item 13: the parallel layer)")
+            "(ROADMAP.md section 1, item 13b: tensor and spatial "
+            "parallelism)")
 
 
 def resolve_device(name: str | None = None):

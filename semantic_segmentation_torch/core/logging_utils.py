@@ -6,7 +6,8 @@ Metrics always go to ``<save_dir>/metrics.jsonl`` (appended, so a resumed
 run continues its stream), one object per call: ``t`` (wall clock), ``step``
 when given, and the metrics, each as a float where it has ``__float__``
 (tensors, numpy scalars). wandb attaches only if it imports and initializes;
-otherwise the run warns and goes on offline.
+otherwise the run warns and goes on offline. Under data parallelism only
+rank 0 logs: the other ranks' loggers do nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import time
 from typing import Any, Mapping
 
+from semantic_segmentation_torch.parallel.collectives import is_main
+
 logger = logging.getLogger("semantic_segmentation_torch")
 
 
@@ -24,6 +27,9 @@ class MetricsLogger:
     def __init__(self, save_dir: str, use_wandb: bool = False,
                  wandb_project: str = "", run_name: str = "",
                  config: Mapping[str, Any] | None = None):
+        self._fh = self._wandb = None
+        if not is_main():
+            return
         os.makedirs(save_dir, exist_ok=True)
         self._fh = open(os.path.join(save_dir, "metrics.jsonl"), "a")
         self._wandb = None
@@ -47,6 +53,8 @@ class MetricsLogger:
                             step=step)
 
     def log(self, metrics: Mapping[str, Any], step: int | None = None):
+        if self._fh is None:
+            return
         rec = {"t": time.time(),
                **({"step": step} if step is not None else {}),
                **{k: float(v) if hasattr(v, "__float__") else v
@@ -57,7 +65,8 @@ class MetricsLogger:
             self._wandb.log(dict(metrics), step=step)
 
     def info(self, msg: str, *args):
-        logger.info(msg, *args)
+        if is_main():
+            logger.info(msg, *args)
 
     def __enter__(self):
         return self
@@ -66,6 +75,7 @@ class MetricsLogger:
         self.close()
 
     def close(self):
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()

@@ -92,14 +92,6 @@ DATASET_SPECS: dict[str, DatasetSpec] = {
                           image_norm="minmax", mask_policy="ids"),
 }
 
-# the families of the JAX package's make_dataset that the port does not load
-# yet, and the ROADMAP.md section 1 item that ports each
-UNPORTED_FAMILIES = {
-    "b_subtilis": 8, "bsubtilis": 8, "omnipose": 8, "diabetic": 8,
-    "deepict": 8, "deepict_test": 8, "nib": 8,
-}
-
-
 class PairedImageFolder:
     """BasicDataset equivalent: ids from the images dir; the mask is globbed
     as ``<id><suffix>.*`` in the masks dir (JSRT_loader.py:80-84)."""
@@ -184,8 +176,11 @@ def make_dataset(name: str, root: str, mask_suffix: str = "",
     ``bbdm_colorization_lab`` and ``bbdm_inpainting`` read ONE image
     folder (``<root>/Images`` when present, else ``root``), at 256^2 unless
     ``image_size`` says otherwise; ``pix2pix_colorization`` reads one image
-    folder the same way (L -> ab pairs). The other in-memory families are
-    not ported yet and raise."""
+    folder the same way (L -> ab pairs). The in-memory families
+    (``data/extra.py``): ``b_subtilis`` (or ``bsubtilis``, ``<root>/source``
+    and ``<root>/target_boundaries``), ``omnipose`` and ``diabetic`` (one
+    folder), ``deepict`` and ``deepict_test`` (``root`` is the pickle) and
+    ``nib`` (``<root>/Images`` and ``<root>/Masks`` of NIfTI files)."""
     key = name.lower()
     if key.startswith("bbdm_") and key != "bbdm_aligned":
         from semantic_segmentation_torch.data.extra import BBDM_FAMILIES
@@ -214,10 +209,21 @@ def make_dataset(name: str, root: str, mask_suffix: str = "",
             mask_suffix=mask_suffix,
             spec=DatasetSpec(rgb=True, equalize_gamma=False,
                              image_size=image_size or 256))
-    if key in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md section 1 item "
-            f"{UNPORTED_FAMILIES[key]})")
+    if key in ("b_subtilis", "bsubtilis", "omnipose", "diabetic",
+               "deepict", "deepict_test", "nib"):
+        from semantic_segmentation_torch.data import extra
+        if key in ("b_subtilis", "bsubtilis"):
+            return extra.BSubtilisDataset(root, image_size or 256)
+        if key == "omnipose":
+            return extra.OmniposeDataset(root, image_size or 256)
+        if key == "diabetic":
+            return extra.DiabeticDataset(root, image_size or 512)
+        if key.startswith("deepict"):       # root is the pickle's path
+            return extra.DeePiCtDataset(root, image_size or 256,
+                                        train=key == "deepict")
+        return extra.NibSliceDataset(os.path.join(root, images_sub),
+                                     os.path.join(root, masks_sub),
+                                     mask_suffix=mask_suffix)
     spec = DATASET_SPECS.get(key, DatasetSpec())
     if image_size and image_size != spec.image_size:
         spec = replace(spec, image_size=image_size)

@@ -39,6 +39,16 @@ problem has its optimizer, and the arch tables are plain tensors with their
 Adam. The hypergradients run the nets on other weights through
 ``functional_call`` on scratch buffers, so they never write real state.
 
+Data parallelism (``parallel/``): each rank runs its rows of the global
+batches, the nets' reductions are global (``parallel/collectives.py``),
+every parameter and arch gradient is averaged over the ranks before its
+optimizer step (in ``darts`` both gradients of the finite difference, in
+``unroll`` the surrogate's inner gradients inside the differentiated graph,
+so that the hypergradient sees the global inner step), and the logged
+losses are the global batch's. Every rank takes the same steps and so
+holds the same state. Without a process group all of this is the
+identity.
+
 Random draws (augment affines, dropout masks) come from ``generator``; the
 hypergradients draw from ``hyper_generator``, so they do not advance the
 main stream, and a rollback restores ``generator``'s state, so the replay
@@ -59,6 +69,8 @@ from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import torch
+
+from semantic_segmentation_torch.parallel import collectives
 
 MODES = ("darts", "unroll", "decay_only", "none")
 
@@ -155,8 +167,10 @@ class BilevelEngine:
                           self.generator)
             p.optimizer.zero_grad(set_to_none=True)
             loss.backward(inputs=p.params)
+            collectives.all_reduce_grads(p.params)
             p.optimizer.step()
-            metrics[f"loss_{p.name}"] = loss.detach()
+            metrics[f"loss_{p.name}"] = collectives.mean_over_ranks(
+                loss.detach())
         return metrics
 
     def _unroll(self, batch_stack, draws_stack):
@@ -254,7 +268,8 @@ class BilevelEngine:
                    for p in children}
         child_ws = [w for p in children for w in weights[p.name].values()]
         outer = self.outer_loss({"arch": arch}, val_batch)
-        grads = _grads(outer, list(arch.values()) + child_ws)
+        grads = collectives.mean_over_ranks_list(
+            _grads(outer, list(arch.values()) + child_ws))
         hg = dict(zip(arch, grads[:len(arch)]))
         v_all = iter(grads[len(arch):])
         last_batch = batch_stack[-1]
@@ -276,7 +291,8 @@ class BilevelEngine:
                 loss = p.loss(last_batch[p.name], last_draws.get(p.name, {}),
                               {p.name: shifted, "arch": a},
                               self.hyper_generator)
-                return dict(zip(a, _grads(loss, list(a.values()))))
+                return dict(zip(a, collectives.mean_over_ranks_list(
+                    _grads(loss, list(a.values())))))
 
             with _DeterministicCudnn():
                 g_plus = train_arch_grad(+1.0)
@@ -284,7 +300,7 @@ class BilevelEngine:
             hg = {k: hg[k] - torch.where(
                       v_norm > 0, p.lr * (g_plus[k] - g_minus[k]) / (2.0 * eps),
                       0.0) for k in hg}
-        return hg, outer.detach()
+        return hg, collectives.mean_over_ranks(outer.detach())
 
     def _unroll_hypergrad(self, batch_stack, val_batch, draws):
         """The gradient of the validation loss through K SGD-surrogate inner
@@ -301,12 +317,14 @@ class BilevelEngine:
                               {**cur, "arch": arch}, self.hyper_generator)
                 names = list(cur[p.name])
                 ws = [cur[p.name][n] for n in names]
-                grads = torch.autograd.grad(loss, ws, create_graph=True,
-                                            allow_unused=True)
+                grads = collectives.mean_over_ranks_list(
+                    torch.autograd.grad(loss, ws, create_graph=True,
+                                        allow_unused=True))
                 cur[p.name] = {n: w if g is None else w - p.lr * g
                                for n, w, g in zip(names, ws, grads)}
         outer = self.outer_loss({**cur, "arch": arch}, val_batch)
-        return dict(zip(arch, _grads(outer, list(arch.values()))))
+        return dict(zip(arch, collectives.mean_over_ranks_list(
+            _grads(outer, list(arch.values())))))
 
     # -- one iteration --------------------------------------------------------
     def engine_step(self, batch_stack, val_batch=None, draws=None):
@@ -347,7 +365,8 @@ class BilevelEngine:
                 batch_stack, val_batch, d_hyper)
         else:
             with torch.no_grad():
-                metrics["outer_loss"] = self.outer_loss(None, val_batch)
+                metrics["outer_loss"] = collectives.mean_over_ranks(
+                    self.outer_loss(None, val_batch))
         self._arch_step(hg)
         metrics["arch_grad_norm"] = _global_norm(hg.values()).detach()
         if self.roll_back:

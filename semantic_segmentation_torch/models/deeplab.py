@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from semantic_segmentation_torch.ops.layers import (
     BatchNorm2d, dropout_half, he_normal_fan_out_, lecun_normal_,
     resize_bilinear_align_corners)
+from semantic_segmentation_torch.parallel import collectives
 
 
 def _conv(c_in, c_out, k, stride=1, dilation=1, bias=False):
@@ -183,8 +184,11 @@ class DeepLabV3(nn.Module):
     def draw_dropout(self, shape, generator=None, device=None) -> dict:
         """{'aspp': (B, 256, h, w) bool keep-mask} for an input of NCHW
         ``shape``, drawn from ``generator`` as the train-mode forward
-        draws it (the stride-8 map: stem, pool and layer2 halve)."""
+        draws it (the stride-8 map: stem, pool and layer2 halve); at the
+        global batch's size under data parallelism (``dropout_half`` takes
+        this rank's rows)."""
         b, _, hh, ww = shape
+        b = collectives.global_batch(b)
         size = (b, 256, _out_size(hh, 3), _out_size(ww, 3))
         return {"aspp": torch.rand(size, generator=generator,
                                    device=device) < 0.5}

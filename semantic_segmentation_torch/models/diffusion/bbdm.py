@@ -25,6 +25,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from semantic_segmentation_torch.parallel import collectives
+
 
 @dataclass(frozen=True)
 class BridgeSchedule:
@@ -134,11 +136,13 @@ class BrownianBridge:
     # -- training loss (p_losses, :98-126) ---------------------------------
     def draw_losses(self, x0, generator: torch.Generator | None = None):
         """The draws of one ``p_losses`` call: 't' (B,) int64 uniform over
-        the timesteps and 'noise', standard normal of ``x0``'s shape."""
-        t = torch.randint(0, self.sched.num_timesteps, (x0.shape[0],),
+        the timesteps and 'noise', standard normal of ``x0``'s shape (of
+        the global batch's size under data parallelism)."""
+        b = collectives.global_batch(x0.shape[0])
+        t = torch.randint(0, self.sched.num_timesteps, (b,),
                           generator=generator, device=x0.device)
-        noise = torch.randn(x0.shape, generator=generator, device=x0.device,
-                            dtype=x0.dtype)
+        noise = torch.randn((b,) + tuple(x0.shape[1:]), generator=generator,
+                            device=x0.device, dtype=x0.dtype)
         return {"t": t, "noise": noise}
 
     def p_losses(self, denoise, x0, y, draws=None,
@@ -147,10 +151,12 @@ class BrownianBridge:
         """(reconstruction loss, {'x0_recon'}): the l1 or l2 mean between
         the objective and the denoiser's estimate at ``q_sample(x0, y, t,
         noise)``; ``draws`` as ``draw_losses`` gives them, else drawn from
-        ``generator``."""
+        ``generator`` (the global batch's: this rank takes its rows)."""
         context = self._context(y, context)
         draws = draws or self.draw_losses(x0, generator)
-        t, noise = draws["t"], draws["noise"]
+        b = x0.shape[0]
+        t = collectives.rows(draws["t"], b)
+        noise = collectives.rows(draws["noise"], b)
         x_t, objective = self.q_sample(x0, y, t, noise)
         objective_recon = denoise(x_t, t, context, train)
         diff = objective - objective_recon

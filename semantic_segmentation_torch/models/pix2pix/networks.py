@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from semantic_segmentation_torch.ops.layers import (dropout_half, norm_layer,
                                                     pix2pix_normal_)
 from semantic_segmentation_torch.ops.nas import MixedConvTranspose, arch_softmax
+from semantic_segmentation_torch.parallel import collectives
 
 
 def dropout_depths(num_downs: int):
@@ -75,10 +76,12 @@ class UnetGenerator(nn.Module):
     def draw_dropout(self, shape, generator=None, device=None) -> dict:
         """{depth: keep-mask} for a train-mode forward on an NCHW input of
         ``shape``, drawn from ``generator`` in the order the forward draws
-        them (the deepest first)."""
+        them (the deepest first). Under data parallelism, at the global
+        batch's size (``dropout_half`` takes this rank's rows)."""
         if not self.use_dropout:
             return {}
         b, _, hh, ww = shape
+        b = collectives.global_batch(b)
         return {d: torch.rand((b, self.up_channels[d], hh >> d, ww >> d),
                               generator=generator, device=device) < 0.5
                 for d in reversed(dropout_depths(self.num_downs))}
@@ -168,10 +171,12 @@ class ResnetGenerator(nn.Module):
     def draw_dropout(self, shape, generator=None, device=None) -> dict:
         """{block index: keep-mask} for a train-mode forward on an NCHW
         input of ``shape``, drawn from ``generator`` in the forward's
-        order (the blocks run at a quarter of the input's size)."""
+        order (the blocks run at a quarter of the input's size); at the
+        global batch's size under data parallelism."""
         if not self.res0.use_dropout:
             return {}
         b, _, hh, ww = shape
+        b = collectives.global_batch(b)
         size = (b, self.res0.conv0.out_channels, (hh + 3) // 4,
                 (ww + 3) // 4)
         return {i: torch.rand(size, generator=generator, device=device) < 0.5

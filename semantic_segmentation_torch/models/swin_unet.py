@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from semantic_segmentation_torch.ops.layers import checkpointed, lecun_normal_
+from semantic_segmentation_torch.parallel import collectives
 
 LN_EPS = 1e-6        # flax LayerNorm's epsilon
 
@@ -90,9 +91,12 @@ def _mask_on(h: int, w: int, ws: int, shift: int, device: torch.device):
 
 def drop_path(x, keep_mask, rate: float):
     """Stochastic depth (timm DropPath, reference :209-210): per-sample
-    keep mask (B,) bool, kept samples scaled by 1 / (1 - rate)."""
+    keep mask (B,) bool, kept samples scaled by 1 / (1 - rate); under data
+    parallelism the global batch's mask, of which this rank takes its
+    rows."""
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep_mask = collectives.rows(keep_mask, x.shape[0])
     return x / keep * keep_mask.reshape(shape).to(x.dtype)
 
 
@@ -301,7 +305,9 @@ class SwinUnet(nn.Module):
 
     def draw_drop_path(self, batch: int, generator=None, device=None):
         """{block: (2, batch) bool keep-masks} for every stochastic block,
-        drawn from ``generator`` on ``device``."""
+        drawn from ``generator`` on ``device`` (for the global batch under
+        data parallelism)."""
+        batch = collectives.global_batch(batch)
         return {n: torch.rand(2, batch, generator=generator, device=device)
                 < 1.0 - getattr(self, n).drop_path_rate
                 for n in self.stochastic_blocks()}

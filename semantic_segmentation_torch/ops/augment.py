@@ -24,6 +24,7 @@ import torch
 
 from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.kernels.build import launch
+from semantic_segmentation_torch.parallel import collectives
 
 
 def _about_center(mat, h: float, w: float):
@@ -166,8 +167,12 @@ def random_augment_batch(imgs_nhwc, generator: torch.Generator | None = None,
                          mats=None):
     """The imgaug-equivalent pipeline, one random parameter set per image
     (``train_end2end_jsrt.py:188-189``). Input (N, H, W, C); ``mats``
-    (N, 3, 3) replaces the draw when given."""
+    (N, 3, 3) replaces the draw when given. Under data parallelism the
+    matrices are the global batch's (drawn, or given, at its size) and
+    this rank warps with its rows."""
     n, h, w, _ = imgs_nhwc.shape
     if mats is None:
-        mats = sample_affine_batch(n, h, w, generator, imgs_nhwc.device)
-    return warp_affine_batch(imgs_nhwc.float(), mats.to(imgs_nhwc.device))
+        mats = sample_affine_batch(collectives.global_batch(n), h, w,
+                                   generator, imgs_nhwc.device)
+    mats = collectives.rows(mats.to(imgs_nhwc.device), n)
+    return warp_affine_batch(imgs_nhwc.float(), mats)

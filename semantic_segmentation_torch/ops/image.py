@@ -25,6 +25,7 @@ import torch
 
 from semantic_segmentation_torch import kernels
 from semantic_segmentation_torch.kernels.build import launch
+from semantic_segmentation_torch.parallel import collectives
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 HIST_THREADS = 256         # threads per CTA (hist256_cluster.cuh kThreads)
@@ -104,9 +105,11 @@ def _check_cluster_grid(name: str, n: int, nbytes: int, plan: Hist256Plan):
 
 def minmax_normalize(x):
     """(x - min) / (max - min) over the WHOLE batch — the reference
-    normalizes fake image batches globally (``train_end2end_jsrt.py:197``)."""
+    normalizes fake image batches globally (``train_end2end_jsrt.py:197``);
+    under data parallelism over the global batch, with the gradient of the
+    extremes (``parallel/collectives.global_min_max``)."""
     x = x.float()
-    lo, hi = x.min(), x.max()
+    lo, hi = collectives.global_min_max(x)
     return (x - lo) / (hi - lo)
 
 

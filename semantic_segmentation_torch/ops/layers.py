@@ -43,6 +43,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from semantic_segmentation_torch.parallel import collectives
+
 # set while ``checkpointed`` recomputes a forward in the backward
 _recompute = threading.local()
 
@@ -62,7 +64,8 @@ def _channel_view(t, ndim: int):
 class BatchNorm2d(nn.Module):
     """flax ``BatchNorm`` semantics on NC... tensors (NCHW, NCDHW): the
     statistics reduce over every axis but the channel axis, in float32 (in
-    float64 for a float64 input)."""
+    float64 for a float64 input), over the global batch under data
+    parallelism (``parallel/collectives.batch_var_mean``)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -80,7 +83,7 @@ class BatchNorm2d(nn.Module):
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
         dims = (0,) + tuple(range(2, x.dim()))
-        var, mean = torch.var_mean(xs, dim=dims, unbiased=False)
+        var, mean = collectives.batch_var_mean(xs, dims)
         if not getattr(_recompute, "on", False):
             self._fold(mean, var)
         scale = self.weight * torch.rsqrt(var + self.eps)
@@ -299,9 +302,13 @@ def he_normal_fan_out_(weight, generator: torch.Generator | None = None):
 
 def dropout_half(h, keep, generator: torch.Generator | None = None):
     """Dropout(0.5) as flax applies it: the keep-mask ``keep`` if given,
-    else one drawn from ``generator``; kept values doubled."""
+    else one drawn from ``generator``; kept values doubled. Under data
+    parallelism the mask is the global batch's (drawn, or given, at its
+    shape) and this rank takes its rows."""
     if keep is None:
-        keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.5
+        shape = (collectives.global_batch(h.shape[0]),) + tuple(h.shape[1:])
+        keep = torch.rand(shape, generator=generator, device=h.device) < 0.5
+    keep = collectives.rows(keep, h.shape[0])
     return torch.where(keep, h * 2.0, torch.zeros_like(h))
 
 

@@ -17,18 +17,24 @@ from __future__ import annotations
 
 import torch
 
+from semantic_segmentation_torch.parallel import collectives
+
 
 def dice_coeff(pred, target, reduce_batch_first: bool = False,
                epsilon: float = 1e-6):
     """Mean Dice coefficient (``util/dice_score.py:5-18``): per leading
     element unless ``reduce_batch_first`` folds the batch into one global
-    Dice; an empty union scores 1."""
+    Dice (under data parallelism its sums are the global batch's); an
+    empty union scores 1."""
     pred, target = pred.float(), target.float()
     assert pred.shape == target.shape, (pred.shape, target.shape)
-    dims = (-1, -2) if pred.dim() == 2 or not reduce_batch_first \
-        else (-1, -2, -3)
+    folded = pred.dim() > 2 and reduce_batch_first
+    dims = (-1, -2, -3) if folded else (-1, -2)
     inter = 2.0 * torch.sum(pred * target, dim=dims)
     sets_sum = torch.sum(pred, dim=dims) + torch.sum(target, dim=dims)
+    if folded:
+        inter, sets_sum = collectives.all_reduce_sum(
+            torch.stack([inter, sets_sum])).unbind(0)
     sets_sum = torch.where(sets_sum == 0, inter, sets_sum)
     return torch.mean((inter + epsilon) / (sets_sum + epsilon))
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from semantic_segmentation_torch.ops.image import equalize_uint8
+from semantic_segmentation_torch.parallel import collectives
 
 # torchvision's sharpness kernel [[1,1,1],[1,5,1],[1,1,1]] / 13, row-major
 _SHARPEN_TAPS = tuple(v / 13.0 for v in (1.0, 1.0, 1.0, 1.0, 5.0, 1.0,
@@ -98,11 +99,17 @@ def random_photometric(img_u8, generator: torch.Generator | None = None,
     Batch coins (the default) are the reference's: it applies
     ``fake_trans`` to the whole batched tensor (train_end2end_isic.py:264),
     and each torchvision transform draws one ``torch.rand(1)`` per call.
-    ``per_image`` draws coins and saturation factors per image."""
+    ``per_image`` draws coins and saturation factors per image (those of
+    the global batch under data parallelism, of which this rank takes its
+    rows)."""
     n = img_u8.shape[0]
     if draws is None:
-        draws = draw_photometric(n, per_image, generator, img_u8.device)
+        draws = draw_photometric(collectives.global_batch(n) if per_image
+                                 else n, per_image, generator, img_u8.device)
     shape = (n, 1, 1, 1) if per_image else ()
+    if per_image:
+        draws = {"coins": collectives.rows(draws["coins"], n, dim=1),
+                 "saturation": collectives.rows(draws["saturation"], n)}
     coin = [c.reshape(shape) for c in draws["coins"]]
     out = torch.where(coin[0], equalize_uint8(img_u8), img_u8)
     out = posterize_uint8(out, 4)

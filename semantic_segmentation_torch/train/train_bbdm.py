@@ -33,6 +33,15 @@ batches are the JAX package's: ``batch_iterator`` over
 ``default_rng((seed, epoch))``. Items are NHWC in [0, 1] (``image_pix2pix``
 the target x0, ``mask_pix2pix`` the condition y); the net is NCHW.
 
+Data parallelism (``--run.data_axis=n``, or a ``--run.multihost=true``
+launch; ``parallel/``), the reference's ``mp.spawn`` with NCCL DDP
+(``BBDM/main.py:70-127``): each rank steps on its rows of the global
+batch, with the bridge's ``t`` and noise drawn at the global batch's shape
+and the gradients averaged over ranks; the validation runs whole on every
+rank; rank 0 alone writes. With ``data_axis`` > 1 in one process,
+``train`` starts the ranks itself (a ``model`` passed in goes to each
+rank as a copy) and returns rank 0's model.
+
 Usage: ``python -m semantic_segmentation_torch.train.train_bbdm
 --preset=bbdm --data.dataset=bbdm_colorization_rgb --data.dataroot=<dir>
 [--model.output_nc=3] [--run.sample_only=true] [--run.device=cpu]``
@@ -49,6 +58,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from semantic_segmentation_torch.core.checkpoint import CheckpointManager
@@ -71,6 +81,13 @@ from semantic_segmentation_torch.models.diffusion.latent_bbdm import \
 from semantic_segmentation_torch.models.diffusion.vqgan import VQModel
 from semantic_segmentation_torch.ops import gen_metrics
 from semantic_segmentation_torch.ops.nas import NUM_OPS
+from semantic_segmentation_torch.parallel import collectives, launch
+from semantic_segmentation_torch.parallel.data_parallel import (
+    replicate_state, to_cpu)
+from semantic_segmentation_torch.parallel.mesh import (maybe_init_distributed,
+                                                       mesh_from_config,
+                                                       rank_device,
+                                                       shard_batch)
 from semantic_segmentation_torch.train.common import (fold_generator,
                                                       load_splits)
 from semantic_segmentation_torch.utils.visuals import save_image_grid
@@ -222,16 +239,19 @@ class BBDMModel:
 
     def train_step(self, batch, draws=None, generator=None) -> dict:
         """One Adam (or accumulation) step, then the EMA step at the step
-        count before it."""
+        count before it. Under data parallelism ``batch`` is this rank's
+        rows, the gradients are averaged over ranks and the loss is the
+        global batch's."""
         loss, _ = self.loss_fn(batch, draws, generator)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        collectives.all_reduce_grads(self.unet.parameters())
         self.opt.step()
         if self.ema is not None:
             ema_step(self.ema_cfg, self.step, self.ema,
                      dict(self.unet.named_parameters()))
         self.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": collectives.mean_over_ranks(loss.detach())}
 
     @torch.no_grad()
     def val_loss(self, batch, draws=None, generator=None):
@@ -303,15 +323,54 @@ def make_plateau(model: BBDMModel):
         min_lr=5e-7, cooldown=3000)
 
 
+def _rank_train(cfg: Config, train_iters, model_file, device):
+    """``train`` on one rank that ``train`` started, from its own copy of
+    the model in ``model_file`` (None: built here); rank 0's model state
+    (on the CPU) and results."""
+    model = None
+    if model_file is not None:
+        dev = rank_device(resolve_device(device or cfg.run.device))
+        model = torch.load(model_file, map_location=dev, weights_only=False)
+        model.device = dev
+    model, results = train(cfg, train_iters, model, device)
+    return to_cpu(model.state_dict()), results
+
+
+def _spawn(cfg: Config, train_iters, model, device, mesh):
+    """The ranks of ``mesh`` started from this process; rank 0's model (in
+    ``model``, or a new one) and results."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="bbdm-ranks-") as tmp:
+        model_file = None
+        if model is not None:
+            model_file = os.path.join(tmp, "model.pt")
+            torch.save(model, model_file)
+        state, results = launch.run_ranks(
+            _rank_train, mesh.size, (cfg, train_iters, model_file, device),
+            mesh.device_type)
+    model = model or build_model(cfg, resolve_device(device or
+                                                     cfg.run.device))
+    model.load_state_dict(state)
+    return model, results
+
+
 def train(cfg: Config, train_iters: int | None = None,
           model: BBDMModel | None = None, device=None):
     """Train ``cfg`` on ``device`` (default ``cfg.run.device``, 'cuda').
     Returns (model, results): ``best_val`` and ``log``, one record per
     validation: the iteration, the steps since the last one and their wall
     seconds (ending in a device sync), the train and validation loss, and
-    the seconds of the validation and the checkpoint writes."""
-    dev = resolve_device(device or cfg.run.device)
+    the seconds of the validation and the checkpoint writes. With
+    ``run.data_axis`` > 1 and no process group up, the ranks start here
+    (module docstring)."""
+    mesh = mesh_from_config(cfg)
+    if mesh is not None and not dist.is_initialized():
+        return _spawn(cfg, train_iters, model, device, mesh)
+    dev = rank_device(resolve_device(device or cfg.run.device))
     model = model or build_model(cfg, dev)
+    replicate_state(mesh, model.unet)
+    replicate_state(mesh, model.opt)
+    replicate_state(mesh, {"arch": model.arch, "ema": model.ema})
     splits = load_splits(cfg)
     save_dir = os.path.join(cfg.run.save_dir, cfg.run.name)
     with MetricsLogger(save_dir, cfg.run.wandb, cfg.run.wandb_project,
@@ -357,7 +416,7 @@ def train(cfg: Config, train_iters: int | None = None,
                     skip -= 1
                     continue
                 metrics = model.train_step(
-                    to_device(batch, dev),
+                    to_device(shard_batch(mesh, batch), dev),
                     generator=fold_generator(root, 2 * it, dev))
                 it += 1
                 epoch_pos += 1
@@ -365,16 +424,19 @@ def train(cfg: Config, train_iters: int | None = None,
                     loss = float(metrics["loss"])    # waits for the steps
                     train_s = time.perf_counter() - t0
                     # one fold for every batch, as the JAX package's key
-                    vls = [float(model.val_loss(
-                        to_device(b, dev),
-                        generator=fold_generator(root, 2 * it + 1, dev)))
-                        for b in eval_batches(splits["val"],
-                                              cfg.data.batch_size)]
+                    # the whole split on every rank
+                    with collectives.replicated():
+                        vls = [float(model.val_loss(
+                            to_device(b, dev),
+                            generator=fold_generator(root, 2 * it + 1, dev)))
+                            for b in eval_batches(splits["val"],
+                                                  cfg.data.batch_size)]
                     val = float(np.mean(vls)) if vls else float("inf")
                     if val < best_val:
                         best_val = val
-                        torch.save(model.weights(),
-                                   os.path.join(save_dir, "bbdm_best.pt"))
+                        if collectives.is_main():
+                            torch.save(model.weights(),
+                                       os.path.join(save_dir, "bbdm_best.pt"))
                     plateau.step(val)
                     save(ckpt_top, {"val_loss": val})
                     records.append({"it": it, "steps": it - last_it,
@@ -395,7 +457,9 @@ def train(cfg: Config, train_iters: int | None = None,
                 epoch += 1
                 epoch_pos = 0
         save(ckpt_latest)
-        torch.save(model.weights(), os.path.join(save_dir, "bbdm_latest.pt"))
+        if collectives.is_main():
+            torch.save(model.weights(),
+                       os.path.join(save_dir, "bbdm_latest.pt"))
         return model, {"best_val": best_val, "log": records}
 
 
@@ -475,8 +539,13 @@ def main(argv=None):
     cfg = parse_config(argv)
     cfg.run.name = cfg.run.name or "bbdm"
     prefer_cudnn_heuristic_mode_b(cfg.run.device)
+    maybe_init_distributed(cfg)
     if cfg.run.sample_only:
-        return sample_eval(cfg)
+        # the sampler has no batch reduction: rank 0 samples and writes
+        if not collectives.is_main():
+            return None
+        with collectives.replicated():
+            return sample_eval(cfg)
     return train(cfg)
 
 

@@ -39,6 +39,18 @@ the best segmenter; ``torch.save`` of it.
 The public ops keep the JAX package's NHWC layout; the nets are NCHW. The
 closures permute at the boundary, a view at C = 1.
 
+Data parallelism (``--run.data_axis=n``, or a ``--run.multihost=true``
+launch; ``parallel/``): each rank runs the engine on its rows of every
+global batch (``data.batch_size``), with the BN statistics, the
+batch-folded Dice and the fake batch's min-max of the global batch, the
+draws at its shape, and every gradient averaged over ranks
+(``engine/bilevel.py``), so the run equals the single-process one up to
+the order of its sums. Validation runs whole on every rank, so every rank
+takes the same decisions (best score, plateau, checkpoints); rank 0 alone
+writes logs, panels, checkpoints and ``unet_best.pt``, and a resumed run
+restores every rank from its files. With ``data_axis`` > 1 in one
+process, ``train`` starts the ranks itself and returns rank 0's engine.
+
 Usage: ``python -m semantic_segmentation_torch.train.train_end2end
 --preset=end2end_jsrt --data.dataroot=<JSRT dir>
 [--data.ood_roots=nlm:<dir>,sz:<dir>:_mask] [--engine.hypergrad=darts]
@@ -58,6 +70,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from semantic_segmentation_torch.core.checkpoint import CheckpointManager
 from semantic_segmentation_torch.core.config import (Config, parse_config,
@@ -78,6 +91,13 @@ from semantic_segmentation_torch.ops.layers import checkpointed
 from semantic_segmentation_torch.ops.losses import gan_loss, l1_loss
 from semantic_segmentation_torch.ops.metrics import eval_batch_score
 from semantic_segmentation_torch.ops.photometric import random_photometric
+from semantic_segmentation_torch.parallel import collectives, launch
+from semantic_segmentation_torch.parallel.data_parallel import (
+    replicate_state, to_cpu)
+from semantic_segmentation_torch.parallel.mesh import (maybe_init_distributed,
+                                                       mesh_from_config,
+                                                       rank_device,
+                                                       shard_batch)
 from semantic_segmentation_torch.train.common import (apply_seg_pretrained,
                                                       autocast_for,
                                                       fold_generator,
@@ -246,6 +266,12 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     that directory (``train_pix2pix.save_model``'s files), and with
     ``run.seg_pretrained`` the segmenter from that checkpoint, before any
     optimizer is made."""
+    p2p, seg = build_nets(cfg, device, seed)
+    return engine_over(cfg, p2p, seg, device, seed), p2p, seg
+
+
+def build_nets(cfg: Config, device, seed: int | None = None):
+    """``build_engine``'s models: (p2p, seg)."""
     device = torch.device(device)
     seed = cfg.run.seed if seed is None else seed
     init_gen = torch.Generator().manual_seed(seed)
@@ -259,6 +285,15 @@ def build_engine(cfg: Config, device, seed: int | None = None):
                      accumulate=cfg.optim.accumulate,
                      **seg_model_kwargs(cfg))
     apply_seg_pretrained(cfg, seg.net)
+    return p2p, seg
+
+
+def engine_over(cfg: Config, p2p: Pix2Pix, seg: SegProblem, device,
+                seed: int | None = None) -> BilevelEngine:
+    """``build_engine``'s problems and engine over the models ``p2p`` and
+    ``seg``: engines of several presets can share one set of nets."""
+    device = torch.device(device)
+    seed = cfg.run.seed if seed is None else seed
     hyper_gen = torch.Generator(device=device).manual_seed(seed + 6)
     problems, outer_loss = build_problems(cfg, p2p, seg,
                                           autocast_for(cfg, device),
@@ -268,14 +303,13 @@ def build_engine(cfg: Config, device, seed: int | None = None):
     arch_opt = adam_torch(list(p2p.arch.values()), cfg.optim.arch_lr, 0.5,
                           weight_decay=cfg.optim.arch_weight_decay)
     e = cfg.engine
-    engine = BilevelEngine(
+    return BilevelEngine(
         problems, p2p.arch, arch_opt, outer_loss,
         unroll_steps=e.unroll_steps, roll_back=e.roll_back,
         hypergrad=e.hypergrad, darts_epsilon=e.darts_epsilon,
         arch_children=e.arch_children,
         generator=torch.Generator(device=device).manual_seed(seed + 5),
         hyper_generator=hyper_gen)
-    return engine, p2p, seg
 
 
 def index_streams(cfg: Config, n_train: int, n_val: int, start: int = 0,
@@ -356,6 +390,13 @@ def _log_mode_notes(log, e):
                  "that decay_only drops: use darts or unroll.")
 
 
+def _rank_train(cfg: Config, train_iters, device):
+    """``train`` on one rank that ``train`` started: rank 0's engine state
+    (on the CPU) and results."""
+    engine, results = train(cfg, train_iters, device)
+    return to_cpu(engine.state_dict()), results
+
+
 def train(cfg: Config, train_iters: int | None = None, device=None):
     """Train ``cfg`` on ``device`` (default ``cfg.run.device``, 'cuda').
     Returns (engine, results); ``results['chunks']`` has one record per
@@ -369,9 +410,20 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
     the best U-Net, the plateau; every ``run.save_every`` iterations and at
     the end with ``run.final_checkpoint``), and ``unet_best.pt``. With
     ``run.resume`` the run continues from the latest checkpoint exactly as
-    if it had not stopped."""
-    dev = resolve_device(device or cfg.run.device)
+    if it had not stopped. With ``run.data_axis`` > 1 and no process group
+    up, the ranks start here (module docstring)."""
+    mesh = mesh_from_config(cfg)
+    if mesh is not None and not dist.is_initialized():
+        state, results = launch.run_ranks(
+            _rank_train, mesh.size, (cfg, train_iters, device),
+            mesh.device_type)
+        engine, _, _ = build_engine(cfg, resolve_device(device or
+                                                        cfg.run.device))
+        engine.load_state_dict(state)
+        return engine, results
+    dev = rank_device(resolve_device(device or cfg.run.device))
     engine, p2p, seg = build_engine(cfg, dev)
+    replicate_state(mesh, engine)
     amp = autocast_for(cfg, dev)
     val_metric = seg_metric(cfg)
     splits = load_splits(cfg)
@@ -388,6 +440,9 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
 
         e = cfg.engine
         _log_mode_notes(log, e)
+        if dist.is_initialized():
+            log.info("data-parallel over a %s group of %d ranks",
+                     dist.get_backend(), dist.get_world_size())
 
         K = e.unroll_steps
         n_train = len(splits["train"]["image"])
@@ -433,13 +488,16 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
                 t0 = time.perf_counter()
                 S = min(cfg.engine.valid_step, iters - it)
                 for _ in range(S):
-                    batch_stack = [{n: take_batch(train_dev, next(s))
+                    # the global batches, of which this rank takes its rows
+                    batch_stack = [{n: shard_batch(mesh, take_batch(
+                                        train_dev, next(s)))
                                     for n, s in streams.items()}
                                    for _ in range(K)]
                     metrics = engine.engine_step(
-                        batch_stack, take_batch(val_dev, next(val_stream)))
+                        batch_stack, shard_batch(mesh, take_batch(
+                            val_dev, next(val_stream))))
                 it += S
-                with torch.no_grad(), amp():
+                with torch.no_grad(), amp(), collectives.replicated():
                     val = float(eval_batch_score(seg.eval_logits(val_images),
                                                  val_masks, seg.n_classes,
                                                  val_metric))
@@ -463,10 +521,12 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
                 # affine draws from their own fold of the seed
                 if crosses_epoch(it, S, n_train):
                     plateau.step(best_val)
-                    save_validation_panels(
-                        p2p, val_dev, it, save_dir, log, amp,
-                        generator=fold_generator(cfg.run.seed, 2 ** 30 + it,
-                                                 dev))
+                    if collectives.is_main():
+                        with collectives.replicated():
+                            save_validation_panels(
+                                p2p, val_dev, it, save_dir, log, amp,
+                                generator=fold_generator(
+                                    cfg.run.seed, 2 ** 30 + it, dev))
                 # after the plateau step, so the checkpoint holds this
                 # iteration's whole state
                 if cfg.run.save_every and it % cfg.run.save_every == 0:
@@ -488,7 +548,8 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
             results[f"ood_{name}"] = evaluate_split(
                 best_net, data, cfg.data.batch_size, seg.n_classes,
                 val_metric, amp)
-        torch.save(best_unet, os.path.join(save_dir, "unet_best.pt"))
+        if collectives.is_main():
+            torch.save(best_unet, os.path.join(save_dir, "unet_best.pt"))
         log.log(results, it)
         log.info("final: %s", results)
         ckpt.wait()
@@ -498,6 +559,7 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     cfg = parse_config(argv, preset="end2end_jsrt")
+    maybe_init_distributed(cfg)
     train(cfg)
 
 

@@ -216,14 +216,15 @@ def test_cli_entries_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("entry", ["parse_config", "train_unet3d"])
 def test_spatial_axis_is_refused(entry):
-    # the spatial-parallel mesh belongs to the parallel layer, not ported
+    # the spatial-parallel mesh belongs to the second half of the parallel
+    # layer (ROADMAP item 13b), not ported
     if entry == "parse_config":
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 13b"):
             parse_config(["--run.spatial_axis=2"])
     else:
         cfg = parse_config(ARGV + ["--run.device=cpu"])
         cfg.run.spatial_axis = 0
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 13b"):
             train_unet3d.train(cfg, train_iters=1, crop=CROP)
 
 

@@ -5,7 +5,11 @@ JAX engine draws, re-derived from its key chain (train_end2end.py:339 ->
 bilevel.py:331 -> :249,273 -> :152 -> :120 -> train_end2end.py:107). No
 dropout layer is live in a unet_32 generator. Losses agree within rtol 1e-3
 (the uint8 chain can move a quantisation level; the largest gap is printed)
-and the arch tables within 1e-6."""
+and the arch tables within 1e-6. The first iteration also runs
+data-parallel on two gloo ranks (one row each, the same state and draws)
+and is held to the JAX engine's losses the same way, and to the port's
+single process within 1e-5 relative
+(``tests/test_torch_engine_modes.dp_first_iteration``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +27,9 @@ from semantic_segmentation_torch.train.common import load_splits
 from semantic_segmentation_torch.train.train_end2end import (PROBLEMS,
                                                              build_engine)
 from semantic_segmentation_torch.utils.bridge import load_flax
-from tests.test_torch_engine_modes import jit_build_engine_and_state
+from semantic_segmentation_torch.parallel.data_parallel import to_cpu
+from tests.test_torch_engine_modes import (  # noqa: F401
+    dp_first_iteration, jit_build_engine_and_state, rank_pool)
 
 ARGV = ["--data.synthetic=true", "--data.image_size=32", "--data.n_train=4",
         "--data.n_val=2", "--data.n_test=2", "--model.compute_dtype=float32",
@@ -41,7 +47,7 @@ def _unet_affines(root, step: int, batch: int, size: int):
     return np.array(sample_affine_batch(rng_aug, batch, size, size))
 
 
-def test_three_decay_only_iterations_match_jax():
+def test_three_decay_only_iterations_match_jax(rank_pool):
     jcfg = jparse(ARGV, preset="end2end_jsrt")
     cfg = parse_config(ARGV + ["--run.device=cpu"], preset="end2end_jsrt")
     assert cfg.engine.hypergrad == jcfg.engine.hypergrad == "decay_only"
@@ -81,16 +87,24 @@ def test_three_decay_only_iterations_match_jax():
             state, train_j, val_j, {n: idx[n][None] for n in PROBLEMS},
             next(val_stream), jnp.int32(it), root, PROBLEMS)
         mats = torch.from_numpy(_unet_affines(root, it, bs, 32))
-        mt = engine.engine_step([{n: take_batch(train_t, idx[n])
-                                  for n in PROBLEMS}], None,
-                                {"replay": [{"unet": {"affine": mats}}]})
+        batches = [{n: take_batch(train_t, idx[n]) for n in PROBLEMS}]
+        draws = {"replay": [{"unet": {"affine": mats}}]}
+        start = to_cpu(engine.state_dict()) if it == 0 else None
+        mt = engine.engine_step(batches, None, draws)
+        if start is not None:
+            dp_gaps = dp_first_iteration(
+                rank_pool, ARGV + ["--run.device=cpu"], "end2end_jsrt",
+                start, (batches, None, draws), mj,
+                {k: float(v) for k, v in mt.items()})
         for n in PROBLEMS:
             a, b = float(mt[f"loss_{n}"]), float(mj[f"loss_{n}"])
             assert np.isfinite(a)
             gap = abs(a - b) / abs(b)
             worst = max(worst, gap)
             assert gap < 1e-3, (it, n, a, b)
-    print(f"largest relative loss gap over 3 iterations: {worst:.3e}")
+    print(f"largest relative loss gap over 3 iterations: {worst:.3e}; two "
+          f"ranks: to JAX {dp_gaps['jax']:.3e}, to one process "
+          f"{dp_gaps['single']:.3e}")
     for k, v in p2p.arch.items():
         np.testing.assert_allclose(v.numpy(), np.asarray(state.arch[k]),
                                    rtol=0, atol=1e-6)

@@ -26,6 +26,14 @@ layer is live in a unet_32 generator. Losses, ``outer_loss`` and
 largest gaps are printed. The JAX engine and its initial state are built
 once for the file.
 
+The first iteration also runs data-parallel on two gloo ranks (one row of
+the global batch each, the same state and draws, ``parallel/harness.py``)
+and is held to the JAX engine's metrics the same way (the darts term at
+the JAX engine's unrolled state), and to the port's single process within
+1e-5 relative (``arch_grad_norm`` 1e-3; ``darts``' is held as a term);
+``tests/test_torch_parallel.py`` holds the ranks to one process in every
+mode.
+
 Also: ``decay_only`` and ``darts`` give bit-identical arch tables and U-Net
 weights in the port under the reference wiring, and the config's
 comma-split tuples and ``end2end_nas`` preset match the JAX package's.
@@ -46,6 +54,7 @@ from semantic_segmentation_torch.core.config import parse_config
 from semantic_segmentation_torch.data.pipeline import (epoch_index_batches,
                                                        take_batch,
                                                        to_device_split)
+from semantic_segmentation_torch.parallel.data_parallel import to_cpu
 from semantic_segmentation_torch.train.common import load_splits
 from semantic_segmentation_torch.train.train_end2end import (PROBLEMS,
                                                              build_engine)
@@ -144,9 +153,53 @@ def _sync_port(engine, state):
                          int(adam.count))
 
 
-def three_iterations_against_jax(case: str, state0, jsplits):
+@pytest.fixture(scope="module")
+def rank_pool(tmp_path_factory):
+    """Two gloo ranks for the data-parallel first iteration."""
+    from semantic_segmentation_torch.parallel.launch import RankPool
+    with RankPool(2, "cpu", timeout=120.0, threads=1,
+                  workdir=str(tmp_path_factory.mktemp("pool"))) as pool:
+        yield pool
+
+
+def dp_first_iteration(pool, argv, preset, start, step, mj, single,
+                       darts_state=None):
+    """The iteration ``step`` ((batches, val_batch, draws), global) on the
+    two ranks of ``pool`` from the port's ``start``, against the JAX
+    engine's metrics ``mj`` and the port's single-process ones ``single``
+    (with ``darts_state``, the port state at the JAX engine's unrolled
+    state, the darts term there stands for ``arch_grad_norm``, as in the
+    single-process check). Returns the largest relative gaps."""
+    from semantic_segmentation_torch.parallel import harness
+    got = pool.run(harness.engine_iterations, tuple(argv), preset, "cpu",
+                   start, [step], False)
+    assert got["world"] == 2 and got["grad_allreduce"]["calls"] > 0
+    m = dict(got["metrics"][0])
+    if darts_state is not None:
+        hg = pool.run(harness.darts_term, tuple(argv), preset, "cpu",
+                      darts_state, step)
+        m["arch_grad_norm"] = float(torch.sqrt(sum(
+            (v ** 2).sum() for v in hg.values())))
+    gaps = {"jax": 0.0, "single": 0.0}
+    for k in mj:
+        ref, one = float(mj[k]), single[k]
+        if ref == 0.0:                    # decay_only's arch_grad_norm
+            assert m[k] == one == 0.0, k
+            continue
+        gap = abs(m[k] - ref) / abs(ref)
+        assert gap < 1e-3, ("two ranks against JAX", k, m[k], ref)
+        gap1 = abs(m[k] - one) / max(abs(one), 1e-12)
+        assert gap1 <= (1e-3 if k == "arch_grad_norm" else 1e-4), (
+            "two ranks against one process", k, m[k], one)
+        gaps["jax"], gaps["single"] = (max(gaps["jax"], gap),
+                                       max(gaps["single"], gap1))
+    return gaps
+
+
+def three_iterations_against_jax(case: str, state0, jsplits, pool=None):
     """Three engine iterations of ``CASES[case]``, each from the JAX
-    engine's state, against the JAX engine (module docstring)."""
+    engine's state, against the JAX engine (module docstring); the first
+    also on the two ranks of ``pool``."""
     extra, preset = CASES[case]
     jcfg = jparse(ARGV + extra, preset=preset)
     cfg = parse_config(ARGV + extra + ["--run.device=cpu"], preset=preset)
@@ -193,6 +246,8 @@ def three_iterations_against_jax(case: str, state0, jsplits):
                                      else "hyper"))}
         batches = [{n: take_batch(train_t, idx[n]) for n in PROBLEMS}]
         val_batch = take_batch(val_t, vidx)
+        start = (to_cpu(engine.state_dict()) if pool is not None
+                 and it == 0 else None)
         mt = engine.engine_step(batches, val_batch, draws)
         assert set(mt) == set(mj), (sorted(mt), sorted(mj))
         got = {k: float(v) for k, v in mt.items()}
@@ -206,6 +261,11 @@ def three_iterations_against_jax(case: str, state0, jsplits):
                                             draws["hyper"])
             got["arch_grad_norm"] = float(torch.sqrt(sum(
                 (v ** 2).sum() for v in hg.values())))
+        if start is not None:
+            dp_gaps = dp_first_iteration(
+                pool, ARGV + extra + ["--run.device=cpu"], preset, start,
+                (batches, val_batch, draws), mj, got,
+                to_cpu(engine.state_dict()) if mode == "darts" else None)
         assert float(mj["arch_grad_norm"]) > 0
         for k in mj:
             a, b = got[k], float(mj[k])
@@ -220,11 +280,14 @@ def three_iterations_against_jax(case: str, state0, jsplits):
     print(f"{case}: largest relative gaps over {ITERS} iterations "
           f"{ {k: f'{v:.2e}' for k, v in sorted(gaps.items())} }, arch "
           f"max |err| {arch_gap:.2e}")
+    if pool is not None:
+        print(f"{case}, two ranks: largest relative metric gap to JAX "
+              f"{dp_gaps['jax']:.2e}, to one process {dp_gaps['single']:.2e}")
     assert engine.step == ITERS
 
 
-def test_three_darts_iterations_match_jax(jax_start):
-    three_iterations_against_jax("darts_live", *jax_start)
+def test_three_darts_iterations_match_jax(jax_start, rank_pool):
+    three_iterations_against_jax("darts_live", *jax_start, pool=rank_pool)
 
 
 def test_decay_only_and_darts_identical_under_reference_wiring():

@@ -17,6 +17,7 @@ from semantic_segmentation_tpu.data.folder import make_dataset as jmake
 from semantic_segmentation_tpu.train.common import load_splits as jload_splits
 from semantic_segmentation_torch.core.config import parse_config
 from semantic_segmentation_torch.data.folder import make_dataset
+from semantic_segmentation_torch.data.pipeline import stack_dataset
 from semantic_segmentation_torch.train.common import load_splits
 
 KEYS = ("image", "mask", "image_pix2pix", "mask_pix2pix")
@@ -92,9 +93,19 @@ def test_load_splits_matches_jax(tmp_path):
 @pytest.mark.parametrize("name", ["deepict", "deepict_test", "nib",
                                   "b_subtilis", "omnipose", "diabetic",
                                   "bsubtilis"])
-def test_unported_families_raise(name, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_dataset(name, str(tmp_path))
+def test_in_memory_families_load(name, tmp_path):
+    # refused until the in-memory families were ported: each key now loads
+    # the JAX package's arrays (tests/test_torch_data_extra.py holds every
+    # family against it at both sizings), stacked by load_splits' stacker
+    from tests.test_torch_data_extra import assert_same_items, write_family
+    path = str(write_family(name, tmp_path / name))
+    got, ref = make_dataset(name, path, image_size=24), jmake(
+        name, path, image_size=24)
+    assert_same_items(got, ref)
+    stacked = stack_dataset(got)["image"]
+    # the NIfTI slices keep their own size, as in the JAX package
+    assert stacked.shape[:3] == ((len(got), 40, 48) if name == "nib"
+                                 else (len(got), 24, 24))
 
 
 @pytest.mark.parametrize("name", ["bbdm_single", "bbdm_aligned"])

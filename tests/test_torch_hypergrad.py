@@ -36,8 +36,9 @@ from semantic_segmentation_torch.core.optim import adam_torch
 from semantic_segmentation_torch.engine.bilevel import (BilevelEngine,
                                                         InnerProblem)
 from semantic_segmentation_torch.ops import augment, conv, image
-from tests.test_torch_engine_modes import (ARGV as MODES_ARGV,
+from tests.test_torch_engine_modes import (ARGV as MODES_ARGV,  # noqa: F401
                                            jit_build_engine_and_state,
+                                           rank_pool,
                                            three_iterations_against_jax)
 
 ETA, ALR, W0, TARGET = 0.1, 0.05, 0.5, 1.7
@@ -276,8 +277,9 @@ def jax_start():
     return jax.device_get(state), jload_splits(jcfg)
 
 
-def test_three_unroll_iterations_match_jax(jax_start):
-    three_iterations_against_jax("unroll_nas", *jax_start)
+def test_three_unroll_iterations_match_jax(jax_start, rank_pool):
+    # the first iteration also on two gloo ranks (test_torch_engine_modes)
+    three_iterations_against_jax("unroll_nas", *jax_start, pool=rank_pool)
 
 
 # -- no kernel on a gradient path -----------------------------------------

@@ -115,14 +115,14 @@ def test_hypergrad_none_leaves_arch(tmp_path):
         assert torch.equal(v, fresh.arch[k])
 
 
-@pytest.mark.parametrize("argv", [["--run.data_axis=data"],
+@pytest.mark.parametrize("argv", [["--model.convt_packed=true"],
                                   ["--model.tapmm_down=true"],
-                                  ["--run.coordinator=localhost:1234"]])
+                                  ["--run.no_such_option=1"]])
 def test_unported_options_are_refused(argv):
-    # an option the port does not implement yet fails loudly instead of
-    # being ignored (end2end_sivae and then pix2pix_colorization, the third
-    # case until the soft-intro VAE and colorization were ported, now
-    # parse; the parallel layer's coordinator is still refused)
+    # an option the port does not implement fails loudly instead of being
+    # ignored (the TPU lowerings' flags are not ported on purpose; the
+    # parallel layer's data_axis and coordinator, refused until it was
+    # ported, parse: test_parallel_options_parse_as_the_jax_parser)
     with pytest.raises(SystemExit, match="unknown"):
         parse_config(argv)
 
@@ -133,9 +133,16 @@ def test_run_amp_is_a_no_op():
     assert parse_config(["--run.amp=false"]).run.amp is False
 
 
-@pytest.mark.parametrize("option", ["multihost=true",
+@pytest.mark.parametrize("option", ["data_axis=2", "data_axis=0",
+                                    "multihost=true",
                                     "coordinator=localhost:1234",
                                     "num_processes=2", "process_id=0"])
-def test_multihost_options_name_the_parallel_layer(option):
-    with pytest.raises(SystemExit, match="item 13: the parallel layer"):
-        parse_config([f"--run.{option}"])
+def test_parallel_options_parse_as_the_jax_parser(option):
+    # the data-parallel layer's options, refused until it was ported: each
+    # parses to the JAX package's value, over the JAX defaults
+    from semantic_segmentation_tpu.core.config import parse_config as jparse
+    got, want = parse_config([f"--run.{option}"]), jparse([f"--run.{option}"])
+    for name in ("data_axis", "multihost", "coordinator", "num_processes",
+                 "process_id"):
+        assert getattr(got.run, name) == getattr(want.run, name), name
+    assert parse_config([]).run.data_axis == jparse([]).run.data_axis == 1
