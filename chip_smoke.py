@@ -243,22 +243,23 @@ Phases, each of which stops the script with a nonzero exit on failure:
    tensors: NCCL refuses two ranks on one device; ``launch.RankPool``,
    ``parallel/harness.py``) at the full-width flagship (256^2, global
    batch 2 so one row a rank, bf16) from phase 6's G, D and arch tables:
-   3 ``decay_only`` iterations and 1 ``unroll`` one (``end2end_nas``: the
-   inner gradients all-reduced inside the differentiated graph, the
-   min-max gradient across the ranks), each from one state with one set
-   of draws (the engine's generator at the global batch's shape); rank 0
-   runs the same iterations alone first (the collectives off, so that no
-   state crosses a process), and from the nets with every parameter one
-   ulp up and one ulp down (the spread: the largest gap of those two to
-   the first run; a repeat is bit for bit the same); the two ranks'
-   losses, ``arch_grad_norm`` and state gaps, each within 4x its own
-   spread: the parameters and the BN statistics (relative per leaf,
-   ``harness.state_gap``), the last step's averaged gradients (relative
-   to their norm) and the arch tables; the warp and the equalize launched on each
-   rank's (1, 256, 256, 1) as the mode runs them; it/s of both, each
-   rank's peak, and the
-   gradient all-reduces' bytes, calls and seconds an iteration (through
-   host memory under gloo: a correctness harness, not a speed figure);
+   2 ``decay_only`` iterations and 1 ``unroll`` one
+   (``end2end_nas``: the inner gradients all-reduced inside the
+   differentiated graph, the min-max gradient across the ranks), each
+   from one state with one set of draws (the engine's generator at the
+   global batch's shape); rank 0 runs the same iterations alone first
+   (the collectives off, so that no state crosses a process), and from
+   the nets with every parameter one ulp up and one ulp down (the spread:
+   the largest gap of those two to the first run; a repeat is bit for bit
+   the same); the two ranks' losses, ``arch_grad_norm`` and state gaps,
+   each within 4x its own spread: the parameters and the BN statistics
+   (relative per leaf, ``harness.state_gap``), the last step's averaged
+   gradients (relative to their norm) and the arch tables; the warp and
+   the equalize launched on each rank's (1, 256, 256, 1) as the mode runs
+   them; it/s of both, each rank's peak, and the gradient all-reduces'
+   bytes, calls and seconds an iteration (through host memory under gloo:
+   a correctness harness, not a speed figure). The same runs alone serve
+   7k (a), on the same pool;
    (b) the flagship entry ``train_end2end.main`` (``python -m
    semantic_segmentation_torch.train.train_end2end``) in a fresh process
    at full width from phase 6's checkpoint for 10 iterations under
@@ -276,6 +277,28 @@ Phases, each of which stops the script with a nonzero exit on failure:
    seconds), then ``train_unet`` at full width (base 64, 256^2, batch 2)
    for 10 steps from the B. subtilis folder and from the DeePiCt pickle
    (steps/s, the peak, no kernel launched);
+7k. tensor and spatial parallelism (``parallel/tensor_parallel.py``,
+   ``parallel/spatial.py``), on 7j (a)'s pool of two gloo ranks that
+   share the card, each case against runs alone on rank 0 with the
+   collectives off, from the nets as built and one ulp up and down: (a)
+   ``tp_engine_step`` on the mesh (data 1, model 2) at the full-width
+   flagship from phase 6's checkpoint, 7j (a)'s 2 ``decay_only``
+   iterations and 1 ``unroll`` one against 7j (a)'s runs alone: the
+   losses, parameters and BN statistics per leaf, the gradients by norm
+   and the arch tables each within 4x its one-ulp spread; each rank's peak, the bytes of rank 0's sharded and whole
+   leaves, the channel gathers' bytes, calls and seconds an iteration,
+   the warp and equalize launches per rank (each rank computes the whole
+   fake batch); (b) ``tp_seg_step`` for the U-Net segmenter (base 64,
+   256^2, batch 2, bf16), 3 steps, held the same way; (d)
+   ``train_unet3d`` at full width (base 64, crop 64^3, batch 1) at
+   ``run.spatial_axis=2`` (one depth slab a rank, halos around every k3
+   conv), 4 steps with one validation, against ``spatial_axis=1``: the
+   logged losses and the parameters within 4x their one-ulp spread; the
+   halos' bytes and seconds a step, each rank's peak, steps/s of both
+   (the two ranks' a correctness harness's, not a speed figure); and (c)
+   in 7j (b)'s child process, after the entry, ``tp_engine_step`` over its
+   one-rank NCCL group (mesh 1 x 1), 2 ``decay_only`` iterations, equal
+   bit for bit to the same iterations alone;
 8. timing, after the trainers so that the profiler cannot slow them, in a
    fresh child process (in a process that had run the trainers,
    torch.profiler was seen to drop device events from its traces; a fresh
@@ -3272,8 +3295,8 @@ def phase_lbbdm(torch) -> dict:
 
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
 NCCL_ARG = "--nccl-child"
-# mode -> (preset, iterations) of the two-rank harness (a)
-DP_MODES = {"decay_only": ("end2end_jsrt", 3), "unroll": ("end2end_nas", 1)}
+# mode -> (preset, iterations) of the two-rank harness, 7j (a) and 7k (a)
+DP_MODES = {"decay_only": ("end2end_jsrt", 2), "unroll": ("end2end_nas", 1)}
 DP_ENTRY_ITERS, DP_ENTRY_VALID = 10, 5
 DP_DEV = "cuda"
 DP_ARGV = ("--data.synthetic=true", f"--run.device={DP_DEV}")
@@ -3295,38 +3318,102 @@ def _dp_steps(cfg, iters: int) -> list:
              take_batch(va, next(val_stream)), None) for _ in range(iters)]
 
 
-def _dp_rel(a: list, b: list, keys) -> float:
-    """The largest relative gap of ``keys`` between two runs' per-step
-    metrics."""
-    return max((abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
-                for x, y in zip(a, b) for k in keys), default=0.0)
+def _within_spread(gap: dict, spread: dict, label: str, skip=()):
+    """Each gap of ``gap`` but ``skip`` within 4x its one-ulp spread."""
+    for k, g in gap.items():
+        if k in skip:
+            continue
+        check(g <= 4.0 * spread[k],
+              f"{label}: {k} gap {g:.3e} above 4x the single-process "
+              f"spread {spread[k]:.3e}")
 
 
-def phase_dp_ranks(torch, ckpt) -> dict:
-    """7j (a): ``dp_engine_step`` on two ranks that share the one card
-    (gloo with CUDA tensors: NCCL refuses two ranks on one device), at the
-    full-width flagship (256^2, batch 2 so one row a rank, bf16), from
-    phase 6's G, D and arch tables: 3 ``decay_only`` iterations and 1
+def _parallel_run(stage: str, mode: str, preset: str, iters: int,
+                  rec: dict, k: int) -> dict:
+    """The checks and the record of ``rec['runs'][k]``, one parallel run
+    of ``harness.alone_and_on_ranks`` (``stage`` '7j' or '7k'), against
+    rank 0's run alone: the losses, ``arch_grad_norm`` (``unroll``) and the
+    state gaps each within 4x its one-ulp spread (the gradients per leaf
+    printed, not held: a leaf of one element, PatchGAN's head bias,
+    carries the bf16 rounding of the convolutions, whose algorithms the
+    one-ulp runs do not sample), the metrics finite, the warp and the
+    equalize launched on each rank as the mode runs them."""
+    one, two = rec["one"], rec["runs"][k]
+    gap, spread = two["gap"], rec["spread"]
+    by_run = [r["gap"] for r in rec["nudged"]]
+    check(one["world"] == 1 and two["world"] == 2,
+          f"{stage} {mode}: {one['world']} and {two['world']} ranks")
+    if mode == "unroll":
+        check(all(math.isfinite(r["arch_grad_norm"]) and
+                  r["arch_grad_norm"] > 0 for r in two["metrics"]),
+              f"{stage} unroll: arch_grad_norm {two['metrics']}")
+    for r in (one, two):
+        for mt in r["metrics"]:
+            check(all(math.isfinite(v) for v in mt.values()),
+                  f"{stage} {mode}: a metric is not finite: {mt}")
+    _within_spread(gap, spread, f"{stage} {mode}", skip=("grads_leaf",))
+    warps, equalizes = (1, 1) if mode == "decay_only" else (3, 0)
+    want = {"warp_affine": warps * iters, "equalize_uint8": equalizes * iters,
+            "histogram256": 0, "conv_down4": 0}
+    check(two["launches"] == one["launches"] == want,
+          f"{stage} {mode}: launches rank 0 {two['launches']}, one "
+          f"process {one['launches']}, not {want}")
+    ga = two["grad_allreduce"]
+    out = {"preset": preset, "iters": iters,
+           "it_per_s_two_ranks": iters / sum(two["seconds"]),
+           "it_per_s_one_process": iters / sum(one["seconds"]),
+           "step_s_two_ranks": two["seconds"],
+           "peak_bytes_per_rank": two["peak_bytes"],
+           "peak_bytes_one_process": one["peak_bytes"][0],
+           "grad_allreduce_bytes_per_iter": ga["bytes"] / iters,
+           "grad_allreduce_s_per_iter": ga["seconds"] / iters,
+           "grad_allreduce_calls_per_iter": ga["calls"] / iters,
+           "gap": gap, "spread": spread,
+           "spread_by_run": dict(zip(("one_ulp_up", "one_ulp_down"),
+                                     by_run)),
+           "alone_runs_s": rec["alone_s"], "two_ranks_s": rec["ranks_s"][k],
+           "last_metrics": two["metrics"][-1], "launches": two["launches"]}
+    if two["leaf_bytes"] is not None:            # tensor-parallel
+        sharded, whole = two["leaf_bytes"]
+        check(two["tp"]["calls"] > 0 and sharded > 0,
+              f"{stage} {mode}: model group {two['tp']}, sharded "
+              f"{sharded} B")
+        out.update(mesh=TP_MESH, sharded_leaf_bytes_rank0=sharded,
+                   whole_leaf_bytes_rank0=whole,
+                   gather_bytes_per_iter=two["tp"]["bytes"] / iters,
+                   gather_calls_per_iter=two["tp"]["calls"] / iters,
+                   gather_s_per_iter=two["tp"]["seconds"] / iters,
+                   launches_per_rank=two["launches"])
+    return out
+
+
+def phase_parallel_ranks(torch, ckpt) -> dict:
+    """7j (a) and 7k (a), (b), (d) on one pool of two ranks that share the
+    one card (gloo with CUDA tensors: NCCL refuses two ranks on one
+    device), at the full-width flagship (256^2, global batch 2, bf16) from
+    phase 6's G, D and arch tables: 2 ``decay_only`` iterations and 1
     ``unroll`` one (``end2end_nas``: the in-graph all-reduce of the inner
     gradients and the min-max gradient across the ranks), each from one
     state with one set of draws (the engine's generator, at the global
-    batch's shape). Rank 0 first runs the same iterations alone, the
+    batch's shape). Rank 0 first runs the iterations alone, the
     collectives off (``harness.alone_and_on_ranks``: a state of 2.4 GB
     would take some 50 s to cross a pipe), then from the nets with every
     parameter one ulp up and one ulp down (a repeat is bit for bit the
-    same): the spread, the largest gap of those runs to the first. The
-    two ranks' losses, ``arch_grad_norm`` and state gaps
-    (``harness.state_gap``: the parameters and the BN statistics relative
-    per leaf, the last step's averaged gradients relative to their norm,
-    the arch tables) must each lie within 4x its own spread; the
-    gradients' gap per leaf is printed. Prints it/s of both,
-    each rank's peak, and the gradient all-reduces' bytes and seconds an
-    iteration (through host memory under gloo: a correctness harness, not
-    a speed figure)."""
+    same): the spread, the largest gap of those runs to the first. Then
+    the two ranks run them data-parallel, one row a rank (7j (a)), and
+    tensor-parallel on the mesh (data 1, model 2), the whole batch on each
+    and every covered layer's output channels split (7k (a)), each held
+    against that one set of runs alone (``_parallel_run``). Then 7k (b)
+    (``tp_seg_step``) and (d) (``train_unet3d`` at ``run.spatial_axis=2``)
+    on the same ranks. Prints it/s of both, each rank's peak, the gradient
+    all-reduces' and the channel gathers' bytes and seconds an iteration
+    (through host memory under gloo: a correctness harness, not a speed
+    figure). One set of runs alone serves both parallel forms."""
     from semantic_segmentation_torch.core.config import parse_config
     from semantic_segmentation_torch.parallel import harness
     from semantic_segmentation_torch.parallel.launch import RankPool
     DP_DIR.mkdir(parents=True, exist_ok=True)
+    TP_DIR.mkdir(parents=True, exist_ok=True)
     argv = tuple(DP_ARGV) + (f"--run.pretrained_pix2pix={ckpt}",)
     out = {}
     t_pool = time.perf_counter()
@@ -3344,64 +3431,17 @@ def phase_dp_ranks(torch, ckpt) -> dict:
             # every run starts from the nets as built (phase 6's G, D and
             # arch tables, the seed's U-Net), which each rank builds
             rec = pool.run(harness.alone_and_on_ranks, argv, preset, DP_DEV,
-                           _dp_steps(cfg, iters))
-            one, runs, two = rec["one"], rec["nudged"], rec["two"]
-            check(one["world"] == 1 and two["world"] == 2,
-                  f"7j {mode}: {one['world']} and {two['world']} ranks")
-            loss_keys = [k for k in one["metrics"][0]
-                         if k != "arch_grad_norm"]
-
-            def gaps(r):
-                g = {"losses": _dp_rel(r["metrics"], one["metrics"],
-                                       loss_keys), **r["state_gap"]}
-                if mode == "unroll":
-                    g["arch_grad_norm"] = _dp_rel(
-                        r["metrics"], one["metrics"], ["arch_grad_norm"])
-                return g
-            gap, by_run = gaps(two), [gaps(r) for r in runs]
-            spread = {k: max(g[k] for g in by_run) for k in gap}
-            if mode == "unroll":
-                check(all(math.isfinite(r["arch_grad_norm"]) and
-                          r["arch_grad_norm"] > 0 for r in two["metrics"]),
-                      f"7j unroll: arch_grad_norm {two['metrics']}")
-            for r in (one, two):
-                for mt in r["metrics"]:
-                    check(all(math.isfinite(v) for v in mt.values()),
-                          f"7j {mode}: a metric is not finite: {mt}")
-            # not held: a gradient leaf of one element (PatchGAN's head
-            # bias) carries the bf16 rounding of the convolutions, whose
-            # algorithms at one row a rank the one-ulp runs do not sample
-            for k, g in gap.items():
-                if k == "grads_leaf":
-                    continue
-                check(g <= 4.0 * spread[k],
-                      f"7j {mode}: two ranks {k} gap {g:.3e} above 4x the "
-                      f"single-process spread {spread[k]:.3e}")
-            warps, equalizes = (1, 1) if mode == "decay_only" else (3, 0)
-            want = {"warp_affine": warps * iters,
-                    "equalize_uint8": equalizes * iters,
-                    "histogram256": 0, "conv_down4": 0}
-            check(two["launches"] == one["launches"] == want,
-                  f"7j {mode}: launches rank 0 {two['launches']}, one "
-                  f"process {one['launches']}, not {want}")
-            ga = two["grad_allreduce"]
-            out[f"dp_gloo_{mode}"] = {
-                "preset": preset, "iters": iters,
-                "it_per_s_two_ranks": iters / sum(two["seconds"]),
-                "it_per_s_one_process": iters / sum(one["seconds"]),
-                "step_s_two_ranks": two["seconds"],
-                "peak_bytes_per_rank": two["peak_bytes"],
-                "peak_bytes_one_process": one["peak_bytes"][0],
-                "grad_allreduce_bytes_per_iter": ga["bytes"] / iters,
-                "grad_allreduce_s_per_iter": ga["seconds"] / iters,
-                "grad_allreduce_calls_per_iter": ga["calls"] / iters,
-                "gap": gap, "spread": spread,
-                "spread_by_run": dict(zip(("one_ulp_up", "one_ulp_down"),
-                                          by_run)),
-                "alone_runs_s": rec["alone_s"], "two_ranks_s": rec["ranks_s"],
-                "last_metrics": two["metrics"][-1],
-                "launches": two["launches"]}
+                           _dp_steps(cfg, iters), meshes=(None, TP_MESH))
+            out[f"dp_gloo_{mode}"] = _parallel_run("7j", mode, preset,
+                                                   iters, rec, 0)
+            out[f"tp_gloo_{mode}"] = _parallel_run("7k", mode, preset,
+                                                   iters, rec, 1)
+        t_tp = time.perf_counter()
+        out.update(_tp_seg(torch, pool))
+        out.update(_spatial_unet3d(torch, pool))
+        tp_rest_s = time.perf_counter() - t_tp
     out["dp_gloo_decay_only"]["pool_start_s"] = pool_s
+    out["tp_gloo_decay_only"]["seg_and_spatial_s"] = tp_rest_s
     return out
 
 
@@ -3415,7 +3455,8 @@ def _free_port() -> int:
 def nccl_child(torch, out_file: str, argv: list) -> int:
     """The real flagship entry, ``train_end2end.main(argv)``, in this fresh
     process; its kernel launches, the process group and the gradient
-    all-reduces to ``out_file``."""
+    all-reduces to ``out_file``. Over NCCL, then 7k (c) in the same group
+    (``tp_in_group``), its record beside."""
     import torch.distributed as dist
 
     from semantic_segmentation_torch import kernels
@@ -3435,6 +3476,10 @@ def nccl_child(torch, out_file: str, argv: list) -> int:
            "backend": dist.get_backend() if dist.is_initialized() else None,
            "world": dist.get_world_size() if dist.is_initialized() else 0,
            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        ckpt = next(a.split("=", 1)[1] for a in argv
+                    if a.startswith("--run.pretrained_pix2pix="))
+        rec["tp_in_group"] = tp_in_group(ckpt)
     if dist.is_initialized():
         dist.destroy_process_group()
     Path(out_file).write_text(json.dumps(rec))
@@ -3474,7 +3519,8 @@ def phase_dp_nccl(torch, ckpt, flagship: dict) -> dict:
     ``end2end_trainer`` (``flagship``, the same configuration): every
     number it logged at iteration 10 (the losses, ``arch_grad_norm``, the
     validation Dice) equal, else (a plain run of the entry for the spread)
-    within 4x the run-to-run spread; it/s of both."""
+    within 4x the run-to-run spread; it/s of both. Then 7k (c) in the
+    same child (``tp_in_group``, ``tp_nccl_stats``)."""
     from semantic_segmentation_torch.core.config import parse_config
     dp = ["--run.multihost=true",
           f"--run.coordinator=127.0.0.1:{_free_port()}",
@@ -3513,7 +3559,8 @@ def phase_dp_nccl(torch, ckpt, flagship: dict) -> dict:
         check(rel <= 4.0 * spread, f"7j nccl: {rel:.3e} from the plain "
               f"run, above 4x the spread {spread:.3e}")
     its = [r["iters_per_sec"] for r in s_nccl if "iters_per_sec" in r]
-    return {"dp_nccl_entry": {
+    return {"tp_nccl": tp_nccl_stats(nccl["tp_in_group"]),
+            "dp_nccl_entry": {
         "iters": iters, "compared": keys, "equal": rel == 0.0,
         "largest_rel_gap": rel, "spread": spread,
         "steady_it_per_s_nccl": its[-1],
@@ -3662,6 +3709,142 @@ def phase_families(torch) -> dict:
             "checkpoint_bytes_counted": sum(f["bytes"] for f in saves.files),
             "launches": launches}
     return out
+
+
+# -- 7k. tensor and spatial parallelism ---------------------------------------
+
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+TP_MESH = (1, 2)            # (data, model): the two ranks one model group
+TP_SEG_STEPS, TP_NCCL_ITERS = 3, 2
+# (b)'s segmenter: train_unet's U-Net at full width, 256^2, batch 2
+TP_SEG_ARGV, TP_SEG_SIZE = ("--data.image_size=256",
+                            "--model.base_features=64",
+                            "--model.compute_dtype=bfloat16"), 256
+# (d)'s trainer: train_unet3d at full width, GenSeg-3D's batch of 1
+SP_STEPS, SP_CROP, SP_RANKS = 4, 64, 2
+SP_ARGV = ("--data.synthetic=true", "--data.n_train=4", "--data.n_val=1",
+           "--data.n_test=1", "--data.batch_size=1",
+           "--model.base_features=64")
+
+
+def _tp_seg(torch, pool) -> dict:
+    """7k (b): ``tp_seg_step`` for the U-Net segmenter (base 64, 256^2,
+    batch 2, bf16) on the mesh (1, 2), 3 steps, against rank 0 alone
+    (``harness.seg_alone_and_on_ranks``): the losses, parameters, BN
+    statistics and the last step's gradients each within 4x its one-ulp
+    spread."""
+    from semantic_segmentation_torch.data.pipeline import stack_dataset
+    from semantic_segmentation_torch.data.synthetic import \
+        SyntheticSegDataset
+    from semantic_segmentation_torch.parallel import harness
+    argv = TP_SEG_ARGV + (f"--run.device={DP_DEV}",)
+    data = stack_dataset(SyntheticSegDataset(n=2 * TP_SEG_STEPS,
+                                             size=TP_SEG_SIZE, seed=11))
+    batches = [{k: data[k][2 * i:2 * i + 2] for k in ("image", "mask")}
+               for i in range(TP_SEG_STEPS)]
+    rec = pool.run(harness.seg_alone_and_on_ranks, argv, DP_DEV, batches,
+                   TP_MESH)
+    one, two = rec["one"], rec["runs"][0]
+    check(all(math.isfinite(v) for v in one["losses"] + two["losses"]),
+          f"7k seg: losses {one['losses']} {two['losses']}")
+    _within_spread(two["gap"], rec["spread"], "7k seg")
+    check(two["tp"]["calls"] > 0, f"7k seg: model group {two['tp']}")
+    return {"tp_seg": {
+        "steps": TP_SEG_STEPS, "mesh": TP_MESH,
+        "steps_per_s_two_ranks": TP_SEG_STEPS / sum(two["seconds"]),
+        "steps_per_s_one_process": TP_SEG_STEPS / sum(one["seconds"]),
+        "peak_bytes_per_rank": two["peak_bytes_per_rank"],
+        "peak_bytes_one_process": one["peak_bytes"],
+        "gather_bytes_per_step": two["tp"]["bytes"] / TP_SEG_STEPS,
+        "gather_s_per_step": two["tp"]["seconds"] / TP_SEG_STEPS,
+        "gap": two["gap"], "spread": rec["spread"],
+        "losses": two["losses"], "launches": two["launches"]}}
+
+
+def _spatial_unet3d(torch, pool) -> dict:
+    """7k (d): ``train_unet3d`` at full width (base 64, crop 64^3, batch 1)
+    with ``run.spatial_axis=2`` on the pool's two ranks (one depth slab
+    each), 4 steps with one validation, against ``spatial_axis=1`` alone
+    on rank 0 (``harness.unet3d_alone_and_on_ranks``): the logged loss,
+    the final parameters and the first step's averaged gradients (by
+    norm: before RMSprop's first step moves the conv biases that BN
+    cancels by 10 lr in the sign of their rounding, which parts the runs
+    alone by as much as it parts the ranks) each within 4x its one-ulp
+    spread."""
+    from semantic_segmentation_torch.parallel import harness
+    argv = SP_ARGV + (f"--engine.valid_step={SP_STEPS}",
+                      f"--run.device={DP_DEV}",
+                      f"--run.save_dir={TP_DIR / 'unet3d'}")
+    rec = pool.run(harness.unet3d_alone_and_on_ranks, argv, SP_STEPS,
+                   SP_CROP, SP_RANKS)
+    one, two = rec["one"], rec["runs"][0]
+    for r in (one, two):
+        check(all(math.isfinite(x["loss"]) for x in r["results"]["log"])
+              and math.isfinite(r["results"]["test_dice"]),
+              f"7k unet3d: {r['results']}")
+    _within_spread({k: two["gap"][k] for k in ("losses", "params",
+                                                "first_grads")},
+                   rec["spread"], "7k unet3d")
+    check(two["halo"]["calls"] > 0, f"7k unet3d: halos {two['halo']}")
+    zero = {"warp_affine": 0, "equalize_uint8": 0, "histogram256": 0,
+            "conv_down4": 0}
+    check(two["launches"] == one["launches"] == zero,
+          f"7k unet3d: launches {two['launches']}")
+    steps = sum(x["steps"] for x in two["results"]["log"])
+    return {"spatial_unet3d": {
+        "steps": SP_STEPS, "crop": SP_CROP, "ranks": SP_RANKS,
+        "halo_bytes_per_step": two["halo"]["bytes"] / steps,
+        "halo_s_per_step": two["halo"]["seconds"] / steps,
+        "halo_calls_per_step": two["halo"]["calls"] / steps,
+        "steps_per_s_two_ranks_correctness_harness":
+            steps / sum(x["seconds"] for x in two["results"]["log"]),
+        "steps_per_s_one_process":
+            steps / sum(x["seconds"] for x in one["results"]["log"]),
+        "peak_bytes_per_rank": two["peak_bytes_per_rank"],
+        "peak_bytes_one_process": one["peak_bytes"],
+        "gap": two["gap"], "spread": rec["spread"],
+        "best_val": [one["results"]["best_val"],
+                     two["results"]["best_val"]],
+        "launches": two["launches"]}}
+
+
+def tp_in_group(ckpt: str) -> dict:
+    """7k (c), in 7j (b)'s child after the entry, whose one-rank NCCL
+    group is still up: ``tp_engine_step`` over it (mesh 1 x 1: every
+    covered layer sharded into one shard, every gather and model-group sum
+    through NCCL), 2 ``decay_only`` iterations at the full-width flagship,
+    against the same iterations alone in that process (the collectives
+    off): ``harness.alone_and_on_ranks``'s record."""
+    from semantic_segmentation_torch.core.config import parse_config
+    from semantic_segmentation_torch.parallel import harness
+    argv = tuple(DP_ARGV) + (f"--run.pretrained_pix2pix={ckpt}",)
+    cfg = parse_config(list(argv), preset="end2end_jsrt")
+    rec = harness.alone_and_on_ranks(argv, "end2end_jsrt", DP_DEV,
+                                     _dp_steps(cfg, TP_NCCL_ITERS),
+                                     meshes=((1, 1),), nudged=False)
+    return rec
+
+
+def tp_nccl_stats(rec: dict) -> dict:
+    """7k (c)'s checks on ``tp_in_group``'s record: the run over the group
+    equal to the run alone bit for bit, a group of one giving the plain
+    values."""
+    one, two = rec["one"], rec["runs"][0]
+    check(two["tp"]["calls"] > 0 and two["grad_allreduce"]["calls"] > 0,
+          f"7k nccl: model group {two['tp']}, gradients "
+          f"{two['grad_allreduce']}")
+    check(two["metrics"] == one["metrics"] and
+          all(v == 0.0 for v in two["gap"].values()),
+          f"7k nccl: not bit for bit: {two['metrics']} against "
+          f"{one['metrics']}, gaps {two['gap']}")
+    return {
+        "iters": TP_NCCL_ITERS, "mesh": (1, 1), "equal": True,
+        "it_per_s_nccl": TP_NCCL_ITERS / sum(two["seconds"]),
+        "it_per_s_plain": TP_NCCL_ITERS / sum(one["seconds"]),
+        "gather_calls_per_iter": two["tp"]["calls"] / TP_NCCL_ITERS,
+        "peak_bytes_nccl": two["peak_bytes"][0],
+        "peak_bytes_plain": one["peak_bytes"][0],
+        "launches": two["launches"]}
 
 
 def phase_benches(torch, records, gen_img):
@@ -3946,21 +4129,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("7h")
-    # 7j. data parallelism: two gloo ranks on the card against one process,
-    # the real entry over NCCL at world size 1, the in-memory families
-    for label, stats in [*phase_dp_ranks(torch, ckpt).items(),
-                         *phase_dp_nccl(torch, ckpt, trainer_stats[
-                             "end2end_trainer"]).items()]:
+    # 7j (a), 7k (a), (b), (d): two gloo ranks on the card against one
+    # process, data- and tensor-parallel from one set of runs alone, then
+    # tp_seg_step and train_unet3d at run.spatial_axis=2 on them
+    for label, stats in phase_parallel_ranks(torch, ckpt).items():
         print(f"[{label}] {card}: " + json.dumps(stats))
         paths[label] = stats["launches"]
     torch.cuda.empty_cache()
-    for label, stats in phase_families(torch).items():
-        print(f"[families {label}] {card}: " + json.dumps(stats))
+
+    lap("7j(a)+7k(a,b,d)")
+    # 7j (b), (c): the real entry over NCCL at world size 1, and in its
+    # process 7k (c), tp_engine_step over that one-rank group; the
+    # in-memory families
+    for label, stats in [*phase_dp_nccl(torch, ckpt, trainer_stats[
+            "end2end_trainer"]).items(), *phase_families(torch).items()]:
+        print(f"[{label}] {card}: " + json.dumps(stats))
         if isinstance(stats, dict) and "launches" in stats:
             paths[label] = stats["launches"]
     torch.cuda.empty_cache()
 
-    lap("7j")
+    lap("7j(b,c)+7k(c)")
     # 8. timing and the benchmark paths, in a fresh process
     records, bench_paths = run_timing_child()
     paths.update(bench_paths)

@@ -167,8 +167,8 @@ class RunConfig:
     process_id: int = -1             # process's id; '' / 0 / -1 = read
                                      # torchrun's MASTER_ADDR, MASTER_PORT,
                                      # WORLD_SIZE and RANK
-    spatial_axis: int = 1            # 3D spatial-parallel mesh size; only
-                                     # 1 (off) is ported
+    spatial_axis: int = 1            # 3D spatial-parallel mesh size: 1 =
+                                     # off, 0 = every visible card
     amp: bool = True                 # kept for CLI familiarity (a no-op,
                                      # as in the JAX package: the compute
                                      # dtype is model.compute_dtype)
@@ -298,18 +298,7 @@ def parse_config(argv: list[str] | None = None, preset: str | None = None) -> Co
             raise SystemExit(f"unrecognized argument {a!r}; use --a.b=c")
         k, v = a[2:].split("=", 1)
         _set_by_path(cfg, k, v)
-    check_spatial_axis(cfg)
     return cfg
-
-
-def check_spatial_axis(cfg: Config):
-    """Refuse ``run.spatial_axis`` other than 1: the spatial-parallel mesh
-    belongs to the second half of the parallel layer, not ported yet."""
-    if cfg.run.spatial_axis != 1:
-        raise NotImplementedError(
-            f"run.spatial_axis={cfg.run.spatial_axis} is not ported yet "
-            "(ROADMAP.md section 1, item 13b: tensor and spatial "
-            "parallelism)")
 
 
 def resolve_device(name: str | None = None):

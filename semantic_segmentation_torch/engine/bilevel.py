@@ -47,7 +47,9 @@ optimizer step (in ``darts`` both gradients of the finite difference, in
 so that the hypergradient sees the global inner step), and the logged
 losses are the global batch's. Every rank takes the same steps and so
 holds the same state. Without a process group all of this is the
-identity.
+identity. Under tensor parallelism (``parallel/tensor_parallel.py``) the
+modules hold channel shards and the same code runs: the reductions are the
+data group's, and ``darts``' ``||v||`` takes the shards' model groups.
 
 Random draws (augment affines, dropout masks) come from ``generator``; the
 hypergradients draw from ``hyper_generator``, so they do not advance the
@@ -104,10 +106,6 @@ def _grads(out, wrt: list) -> list:
              if out.requires_grad else [None] * len(wrt))
     return [torch.zeros_like(t) if g is None else g
             for g, t in zip(grads, wrt)]
-
-
-def _global_norm(tensors):
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
 class _DeterministicCudnn:
@@ -276,7 +274,9 @@ class BilevelEngine:
         last_draws = draws[-1] if draws else {}
         for p in children:
             v = {n: next(v_all) for n in weights[p.name]}
-            v_norm = _global_norm(v.values())
+            # whole under tensor parallelism: a shard adds its model group's
+            v_norm = collectives.global_norm(v.values(),
+                                             weights[p.name].values())
             eps = self.darts_epsilon / (v_norm + 1e-12)
             gen_state = (None if self.hyper_generator is None
                          else self.hyper_generator.get_state())
@@ -368,7 +368,8 @@ class BilevelEngine:
                 metrics["outer_loss"] = collectives.mean_over_ranks(
                     self.outer_loss(None, val_batch))
         self._arch_step(hg)
-        metrics["arch_grad_norm"] = _global_norm(hg.values()).detach()
+        metrics["arch_grad_norm"] = collectives.global_norm(
+            hg.values()).detach()
         if self.roll_back:
             self._restore(snapshot)
             replay = self._unroll(batch_stack, d_replay)

@@ -11,9 +11,21 @@ train-mode forward; kept. Init as the JAX package's: kernels torch's
 kaiming-uniform with the fan-in C_in * k^3 (also for the transposed conv),
 conv biases 0, the transposed conv's bias U(+-1/sqrt(fan_in)). Max-pool is
 ``F.max_pool3d`` (the JAX reshape pool is a TPU lowering of it).
+
+Under a spatial mesh (``parallel/spatial.depth_sharded``) each rank holds
+one depth slab of the volume: a k3 conv takes a one-slice halo of each
+neighbour and pads depth 0 (H and W stay padded 1); the pool, the k2 s2
+transposed conv and the 1x1x1 head need none while the slab's depth is
+even; BN reduces its statistics over the group. A level whose slab would
+be odd before its pool (the thin depths of a small crop over many ranks)
+gathers its depth and runs whole on every rank, its BN local (every rank
+computes the same), and the levels below it too; the way up splits again
+where the skip is split.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -21,6 +33,7 @@ import torch.nn.functional as F
 
 from semantic_segmentation_torch.ops.layers import (BatchNorm2d,
                                                     kaiming_uniform_)
+from semantic_segmentation_torch.parallel import collectives, spatial
 
 
 def _conv(c_in: int, c_out: int, k: int, generator) -> nn.Conv3d:
@@ -28,6 +41,23 @@ def _conv(c_in: int, c_out: int, k: int, generator) -> nn.Conv3d:
     kaiming_uniform_(conv.weight, c_in * k ** 3, generator)
     nn.init.zeros_(conv.bias)
     return conv
+
+
+def _conv3(conv: nn.Conv3d, x, sp):
+    """``conv`` (k3, padding 1) on ``x``; under the spatial mesh ``sp``, on
+    this rank's depth slab with a one-slice halo and depth padding 0."""
+    if sp is None:
+        return conv(x)
+    return F.conv3d(spatial.halo(x, 1, sp), conv.weight, conv.bias,
+                    padding=(0, 1, 1))
+
+
+def _level(slab, sp):
+    """The context of a level's block under the spatial mesh ``sp``: on
+    depth slabs (``slab``, the mesh), BN over the group; whole on every rank
+    (None), BN local. Without a mesh, as the caller's."""
+    return contextlib.nullcontext() if sp is None or slab is not None \
+        else collectives.replicated()
 
 
 class Conv3DBlock(nn.Module):
@@ -40,9 +70,10 @@ class Conv3DBlock(nn.Module):
         self.conv2 = _conv(out_channels // 2, out_channels, 3, generator)
         self.bn2 = BatchNorm2d(out_channels)
 
-    def forward(self, x):
-        h = F.relu(self.bn1(self.conv1(x)))
-        res = F.relu(self.bn2(self.conv2(h)))
+    def forward(self, x, sp=None):
+        """``sp``: the spatial mesh ``x`` is a depth slab of, or None."""
+        h = F.relu(self.bn1(_conv3(self.conv1, x, sp)))
+        res = F.relu(self.bn2(_conv3(self.conv2, h, sp)))
         if self.bottleneck:
             return res, res
         return F.max_pool3d(res, 2, 2), res
@@ -65,12 +96,17 @@ class UpConv3DBlock(nn.Module):
         if last_layer:
             self.conv3 = _conv(in_channels // 2, num_classes, 1, generator)
 
-    def forward(self, x, residual=None):
+    def forward(self, x, residual=None, sp=None, split=False):
+        """``sp``: the spatial mesh ``residual`` is a depth slab of, or
+        None; ``split``: ``x`` is whole, and the up-conv's output is split
+        to this rank's slab."""
         h = self.upconv1(x)
+        if split:
+            h = spatial.split_depth(h, sp)
         if residual is not None:
             h = torch.cat([h, residual.to(h.dtype)], dim=1)
-        h = F.relu(self.bn(self.conv1(h)))
-        h = F.relu(self.bn(self.conv2(h)))
+        h = F.relu(self.bn(_conv3(self.conv1, h, sp)))
+        h = F.relu(self.bn(_conv3(self.conv2, h, sp)))
         if self.last_layer:
             h = self.conv3(h)
         return h
@@ -98,10 +134,24 @@ class UNet3D(nn.Module):
         self.s_block1 = UpConv3DBlock(l2, l1, True, num_classes, generator=g)
 
     def forward(self, x):
-        out, r1 = self.a_block1(x)
-        out, r2 = self.a_block2(out)
-        out, r3 = self.a_block3(out)
-        out, _ = self.bottleneck(out)
-        out = self.s_block3(out, r3)
-        out = self.s_block2(out, r2)
-        return self.s_block1(out, r1).float()
+        """Under a spatial mesh, on this rank's depth slab ``x`` (module
+        docstring): each level on slabs while they stay even before its
+        pool, else whole."""
+        sp = spatial.active_mesh()
+        out, slab, skips = x, sp, []
+        for block in (self.a_block1, self.a_block2, self.a_block3):
+            if slab is not None and out.shape[2] % 2:
+                out, slab = spatial.gather_depth(out, sp), None
+            with _level(slab, sp):
+                out, res = block(out, slab)
+            skips.append((res, slab))
+        with _level(slab, sp):
+            out, _ = self.bottleneck(out, slab)
+        for block, (res, res_slab) in zip(
+                (self.s_block3, self.s_block2, self.s_block1),
+                reversed(skips)):
+            with _level(res_slab, sp):
+                out = block(out, res, res_slab,
+                            split=res_slab is not None and slab is None)
+            slab = res_slab
+        return out.float()

@@ -94,24 +94,34 @@ def softmax_cross_entropy_weighted(logits, labels, class_weights,
                                    dim: int = 1):
     """torch ``CrossEntropyLoss(weight=w)``: sum(w[y] * nll) / sum(w[y]),
     the classes along ``dim`` — the GenSeg-3D criterion with
-    ``BCE_WEIGHTS = (0.004, 0.996)`` (``GenSeg-3D/UNet3D/config.py:35``)."""
+    ``BCE_WEIGHTS = (0.004, 0.996)`` (``GenSeg-3D/UNet3D/config.py:35``).
+    Under data or spatial parallelism the sums are the global batch's."""
     labels = labels.long()
     logp = torch.log_softmax(logits.float(), dim=dim)
     nll = -logp.gather(dim, labels.unsqueeze(dim)).squeeze(dim)
     w = torch.as_tensor(class_weights, dtype=torch.float32,
                         device=logits.device)[labels]
+    if collectives.active():
+        # this rank's share of the global ratio: its numerator over the
+        # global denominator, times the ranks (parallel/collectives.py)
+        return torch.sum(w * nll) * collectives.world() \
+            / collectives.all_reduce_sum(torch.sum(w))
     return torch.sum(w * nll) / torch.sum(w)
 
 
 @torch.no_grad()
 def argmax_dice_score(logits, target, dim: int = 1, epsilon: float = 1e-6):
     """GenSeg-3D's ``dice_score`` (``train_end2end.py:40-54``): the global
-    Dice of the argmax prediction. A constant with respect to the logits
-    (the reference calls ``.item()`` on it): computed detached."""
+    Dice of the argmax prediction (over the global batch under data or
+    spatial parallelism). A constant with respect to the logits (the
+    reference calls ``.item()`` on it): computed detached."""
     pred = torch.argmax(logits.float(), dim=dim).float()
     target = target.float()
     inter = torch.sum(pred * target)
     union = torch.sum(pred) + torch.sum(target)
+    if collectives.active():            # the global batch's sums
+        inter, union = collectives.all_reduce_sum(torch.stack([inter,
+                                                               union]))
     return (2.0 * inter + epsilon) / (union + epsilon)
 
 

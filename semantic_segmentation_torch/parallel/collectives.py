@@ -16,7 +16,11 @@ batch meets itself:
 - ``mean_over_ranks``: a logged loss or metric of the global batch;
 - ``all_reduce_grads``: the parameter gradients, averaged before every
   optimizer step;
-- ``rows``: this rank's rows of a draw made at the global batch's shape.
+- ``rows``: this rank's rows of a draw made at the global batch's shape;
+- ``merge_slices`` (into a zero buffer from ``like``) and ``sum_over``:
+  the exchanges of a named group, counted in the caller's statistics (the
+  channel gathers of ``parallel/tensor_parallel.py``, the depth halos of
+  ``parallel/spatial.py``).
 
 Each rank's loss is its share of the global one: the global loss is the
 mean over ranks of the local losses (a mean over the local rows, plus terms
@@ -31,6 +35,15 @@ such a group gives the plain values exactly.
 every rank (evaluation) or on one rank (rank 0's panels). Only
 ``all_reduce`` and ``broadcast`` are used: they run on NCCL, on gloo, and
 on gloo with CUDA tensors.
+
+The reductions run over the mesh's ``data`` axis: the whole group unless a
+2-D mesh (``parallel/mesh.make_dp_tp_mesh``) or a spatial mesh
+(``parallel/spatial.py``) names a subgroup for the duration of a step
+(``axes``). On a (data, model) mesh the ranks of one model group hold the
+same rows and different channels, so the batch meets itself over the data
+group only; the model group's own traffic (the channel gathers of
+``parallel/tensor_parallel.py``) runs on the group each sharded parameter
+names (``TP_SHARD``) and does not turn off under ``replicated()``.
 """
 
 from __future__ import annotations
@@ -43,12 +56,21 @@ import torch.distributed as dist
 
 _replicated = [False]
 
+# the process group the reductions run over (``axes``; None: every rank)
+_AXES = {"data": None}
+
+# the attribute ``tensor_parallel.shard_state_tp`` sets on a channel-sharded
+# parameter: (sharded dim, model group, model size)
+TP_SHARD = "tp_shard"
+
 # the gradient all-reduces since the last reset: calls, bytes, seconds
 # (seconds end in a device sync when ``timed`` is set)
 GRAD_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "timed": False}
 
 # elements per flat all-reduce buffer
 _BUCKET = 1 << 26
+
+_HALF = (torch.float16, torch.bfloat16)
 
 
 def reset_grad_stats(timed: bool | None = None):
@@ -65,11 +87,25 @@ def active() -> bool:
 
 
 def world() -> int:
-    return dist.get_world_size() if active() else 1
+    """The size of the data axis: 1 where the reductions are off."""
+    return dist.get_world_size(_AXES["data"]) if active() else 1
 
 
 def rank() -> int:
-    return dist.get_rank() if active() else 0
+    """This process's index along the data axis."""
+    return dist.get_rank(_AXES["data"]) if active() else 0
+
+
+@contextlib.contextmanager
+def axes(data=None):
+    """The reductions over the process group ``data`` (None: every rank)
+    inside the block."""
+    prev = _AXES["data"]
+    _AXES["data"] = data
+    try:
+        yield
+    finally:
+        _AXES["data"] = prev
 
 
 def is_main() -> bool:
@@ -107,23 +143,103 @@ def rows(x, n_local: int, dim: int = 0):
     return x.narrow(dim, rank() * n_local, n_local)
 
 
+def dense_view(x):
+    """``x`` as a contiguous view of its own memory (a permutation of a
+    dense tensor in any memory format: channels-last too), so that a
+    collective can reduce it in place."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    v = x.permute(order)
+    if not v.is_contiguous():
+        raise ValueError(f"a tensor of strides {x.stride()} is not dense")
+    return v
+
+
+def like(x, shape):
+    """Zeros of ``shape`` in ``x``'s dtype, device and memory format
+    (NCHW, or channels-last as cuDNN and oneDNN keep an activation whose
+    input was a permuted NHWC batch): a gathered activation keeps the
+    layout, so the layers after it run the same kernels as without the
+    mesh."""
+    fmt = torch.contiguous_format
+    if not x.is_contiguous():
+        for f, nd in ((torch.channels_last, 4), (torch.channels_last_3d, 5)):
+            if x.dim() == nd and x.is_contiguous(memory_format=f):
+                fmt = f
+    return torch.empty(shape, dtype=x.dtype, device=x.device,
+                       memory_format=fmt).zero_()
+
+
+def all_reduce_counted(t, group, stats: dict):
+    """``dist.all_reduce`` of the dense tensor ``t`` in place over
+    ``group`` (a no-op without a process group), counted in ``stats``."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    t0 = time.perf_counter()
+    dist.all_reduce(dense_view(t), group=group)
+    stats["calls"] += 1
+    stats["bytes"] += t.numel() * t.element_size()
+    stats["seconds"] += time.perf_counter() - t0
+
+
+def sum_over(group, x, stats: dict):
+    """A new tensor in ``x``'s layout: ``x`` summed over ``group`` (half
+    types in float32). Without a process group, a copy of ``x``."""
+    y = x.float() if x.dtype in _HALF else x.clone()
+    all_reduce_counted(y, group, stats)
+    return y.to(x.dtype)
+
+
+def merge_slices(group, buf, stats: dict):
+    """``buf``, a zero-filled buffer in which each rank of ``group`` wrote
+    its own elements, with every rank's elements, in place: its bytes
+    summed as uint8 (one rank's bytes and zeros: exact, whatever the
+    dtype, and no wider than it)."""
+    all_reduce_counted(dense_view(buf).view(torch.uint8), group, stats)
+    return buf
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group=None):
+        ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         # differentiable: the unrolled hypergradient takes its gradient
-        return _AllReduceSum.apply(g)
+        return _AllReduceSum.apply(g, ctx.group), None
 
 
 def all_reduce_sum(x):
-    """The sum of ``x`` over ranks, on every rank; its backward sums the
-    gradients over ranks."""
-    return _AllReduceSum.apply(x) if active() else x
+    """The sum of ``x`` over the data axis, on every rank; its backward
+    sums the gradients over the data axis."""
+    return _AllReduceSum.apply(x, _AXES["data"]) if active() else x
+
+
+def global_norm(tensors, like=None):
+    """The Euclidean norm of ``tensors`` taken whole (float32 squares): a
+    tensor whose counterpart in ``like`` (its parameter) is a channel shard
+    (``TP_SHARD``) adds its model group's squares. Without shards, the
+    plain norm."""
+    tensors = list(tensors)
+    like = [None] * len(tensors) if like is None else list(like)
+    total, parts = 0.0, {}
+    for t, w in zip(tensors, like):
+        sq = t.float().pow(2).sum()
+        shard = getattr(w, TP_SHARD, None)
+        if shard is None:
+            total = total + sq
+        else:                      # summed per model group
+            group, part = parts.get(id(shard[1]), (shard[1], 0.0))
+            parts[id(shard[1])] = (group, part + sq)
+    for group, part in parts.values():
+        part = part.detach().clone()
+        if dist.is_available() and dist.is_initialized():
+            dist.all_reduce(part, group=group)
+        total = total + part
+    return torch.sqrt(total)
 
 
 def mean_over_ranks(x):
@@ -162,7 +278,7 @@ def mean_over_ranks_list(tensors: list) -> list:
     w = world()
     for bucket in _flat_groups(ts):
         flat = torch.cat([ts[i].reshape(-1) for i in bucket])
-        flat = _AllReduceSum.apply(flat) / w
+        flat = _AllReduceSum.apply(flat, _AXES["data"]) / w
         for i, piece in zip(bucket, torch.split(
                 flat, [ts[i].numel() for i in bucket])):
             out[live[i]] = piece.view_as(ts[i])
@@ -171,9 +287,9 @@ def mean_over_ranks_list(tensors: list) -> list:
 
 @torch.no_grad()
 def all_reduce_grads(params):
-    """Average the ``.grad`` of ``params`` over ranks, in place, before an
-    optimizer step (flat buffers, one all-reduce per bucket). Counts the
-    calls, bytes and seconds in ``GRAD_STATS``."""
+    """Average the ``.grad`` of ``params`` over the data axis, in place,
+    before an optimizer step (flat buffers, one all-reduce per bucket).
+    Counts the calls, bytes and seconds in ``GRAD_STATS``."""
     if not active():
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -186,7 +302,7 @@ def all_reduce_grads(params):
     w = world()
     for bucket in _flat_groups(grads):
         flat = torch.cat([grads[i].reshape(-1) for i in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=_AXES["data"])
         flat /= w
         for i, piece in zip(bucket, torch.split(
                 flat, [grads[i].numel() for i in bucket])):
@@ -231,11 +347,11 @@ class _GlobalMinMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ext = torch.stack([x.max(), -x.min()])
-        dist.all_reduce(ext, op=dist.ReduceOp.MAX)
+        dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=_AXES["data"])
         hi, lo = ext[0], -ext[1]
         is_hi, is_lo = x == hi, x == lo
         counts = torch.stack([is_hi.sum(), is_lo.sum()]).to(x.dtype)
-        dist.all_reduce(counts)
+        dist.all_reduce(counts, group=_AXES["data"])
         ctx.save_for_backward(is_hi, is_lo, counts)
         return lo.clone(), hi.clone()
 
@@ -244,7 +360,8 @@ class _GlobalMinMax(torch.autograd.Function):
         is_hi, is_lo, counts = ctx.saved_tensors
         zero = counts.new_zeros(())
         g = _AllReduceSum.apply(torch.stack([
-            zero if g_lo is None else g_lo, zero if g_hi is None else g_hi]))
+            zero if g_lo is None else g_lo, zero if g_hi is None else g_hi]),
+            _AXES["data"])
         return is_lo * (g[0] / counts[1]) + is_hi * (g[1] / counts[0])
 
 

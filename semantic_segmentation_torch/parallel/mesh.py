@@ -18,6 +18,11 @@ A group comes up in one of two ways:
   ``LOCAL_RANK``). The group's size is the data axis.
 - ``run.data_axis`` > 1 in one process: the trainers start the ranks
   themselves (``parallel/launch.py``).
+
+``make_dp_tp_mesh`` lays a 2-D ``(data, model)`` mesh over the group (the
+JAX package's ``tensor_parallel.make_dp_tp_mesh``): rank r = d * n_model
++ m, row-major as the JAX mesh, with a data subgroup (the ranks of one m)
+and a model subgroup (the ranks of one d).
 """
 
 from __future__ import annotations
@@ -51,6 +56,77 @@ class DataMesh:
         if self.device_type == "cuda":
             return np.array([f"cuda:{r}" for r in range(self.size)])
         return np.array(["cpu"] * self.size)
+
+
+@dataclass(frozen=True, eq=False)
+class DpTpMesh:
+    """A (data, model) mesh of ``n_data`` x ``n_model`` ranks; this
+    process is ``rank`` = data_rank * n_model + model_rank. The groups are
+    process groups (the default group where one spans every rank; None
+    without a process group)."""
+    n_data: int
+    n_model: int
+    rank: int
+    data_group: object
+    model_group: object
+    device_type: str = "cuda"
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.n_data, "model": self.n_model}
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.n_model
+
+    @property
+    def data_mesh(self) -> "DataMesh":
+        """The data axis alone, with this rank's index on it."""
+        return DataMesh(self.n_data, self.data_rank, self.device_type)
+
+    def axes(self):
+        """A block whose reductions run over this rank's data group."""
+        from semantic_segmentation_torch.parallel import collectives
+        return collectives.axes(self.data_group)
+
+
+def _subgroups(blocks: list, world: int):
+    """One process group per block of ranks, created on every rank in the
+    same order (``dist.new_group``'s rule); this rank's group. A block
+    of every rank is the default group."""
+    mine = None
+    for ranks in blocks:
+        g = dist.group.WORLD if len(ranks) == world else \
+            dist.new_group(ranks)
+        if dist.get_rank() in ranks:
+            mine = g
+    return mine
+
+
+def make_dp_tp_mesh(n_data: int, n_model: int,
+                    device_type: str = "cuda") -> DpTpMesh | None:
+    """The 2-D mesh over the first ``n_data * n_model`` ranks of the group
+    (every rank must call it, in the same order); None on a rank outside
+    it. Raises when the mesh needs more ranks than the group has."""
+    world = process_count()
+    n = n_data * n_model
+    if n_data < 1 or n_model < 1 or n > world:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {n} devices, "
+                         f"have {world}")
+    r = process_index()
+    if not dist.is_initialized():
+        return DpTpMesh(n_data, n_model, r, None, None, device_type)
+    data = _subgroups([[d * n_model + m for d in range(n_data)]
+                       for m in range(n_model)], world)
+    model = _subgroups([[d * n_model + m for m in range(n_model)]
+                        for d in range(n_data)], world)
+    if r >= n:
+        return None
+    return DpTpMesh(n_data, n_model, r, data, model, device_type)
 
 
 def _env_int(name: str, default: int) -> int:

@@ -215,17 +215,25 @@ def test_cli_entries_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["parse_config", "train_unet3d"])
-def test_spatial_axis_is_refused(entry):
-    # the spatial-parallel mesh belongs to the second half of the parallel
-    # layer (ROADMAP item 13b), not ported
+def test_spatial_axis_is_accepted(entry, tmp_path, monkeypatch):
+    # the spatial-parallel mesh (parallel/spatial.py): the parser takes the
+    # option, and train_unet3d at 0 (every visible device: two here) starts
+    # its ranks on the CPU, one depth slab each
     if entry == "parse_config":
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            parse_config(["--run.spatial_axis=2"])
-    else:
-        cfg = parse_config(ARGV + ["--run.device=cpu"])
-        cfg.run.spatial_axis = 0
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            train_unet3d.train(cfg, train_iters=1, crop=CROP)
+        assert parse_config(["--run.spatial_axis=2"]).run.spatial_axis == 2
+        return
+    from semantic_segmentation_torch.parallel import launch, mesh, spatial
+    monkeypatch.setattr(launch, "JOIN_TIMEOUT", 120.0)
+    for mod in (mesh, spatial):
+        monkeypatch.setattr(mod, "visible_devices", lambda device_type: 2)
+    cfg = parse_config(ARGV + ["--run.device=cpu", "--engine.valid_step=1",
+                               f"--run.save_dir={tmp_path}"])
+    cfg.run.spatial_axis = 0
+    net, res = train_unet3d.train(cfg, train_iters=1, crop=CROP)
+    assert [r["step"] for r in res["log"]] == [1]
+    assert np.isfinite(res["log"][0]["loss"]) and np.isfinite(
+        res["test_dice"])
+    assert isinstance(net, torch.nn.Module)
 
 
 def test_end2end_3d_resume_is_bit_for_bit(tmp_path):

@@ -37,6 +37,7 @@ from semantic_segmentation_torch.data.pipeline import (batch_iterator,
                                                        take_batch,
                                                        to_device_split)
 from semantic_segmentation_torch.train import train_unet
+from tests.test_torch_train_unet import random_seg_state
 from semantic_segmentation_torch.train.common import (build_seg_problem,
                                                       load_splits)
 from semantic_segmentation_torch.utils.bridge import (flax_to_state_dict,
@@ -72,7 +73,7 @@ def test_four_steps_match_optax_multisteps():
     problem = JSegProblem("unet", 1, 1, lr=cfg.optim.unet_lr,
                           compute_dtype=jnp.float32, accumulate=2,
                           base_features=8, bilinear=False)
-    state = problem.init(jax.random.key(0), 32)
+    state = random_seg_state(problem, 32)
     batches = list(batch_iterator(load_splits(cfg)["train"], 2,
                                   np.random.default_rng((0, 0))))
     assert len(batches) == 4

@@ -16,6 +16,7 @@ from semantic_segmentation_torch.models.unet import UNet
 from semantic_segmentation_torch.utils.bridge import (arch_to_flax,
                                                       arch_to_torch, load_flax,
                                                       state_dict_to_flax)
+from tests.test_torch_sivae_nets import random_variables
 
 
 def _nets(name):
@@ -34,12 +35,13 @@ def _nets(name):
 @pytest.mark.parametrize("name", ["netG", "netD", "unet"])
 def test_round_trip(name):
     jnet, args, tnet = _nets(name)
-    variables = jnet.init(jax.random.key(1), *args)
-    params = jax.device_get(variables["params"])
+    # values drawn from the init's shapes (no flax init is compiled)
+    variables = random_variables(jnet, *args, seed=1)
+    params = variables["params"]
     # non-trivial running stats, so a mean/var mix-up would show
     stats = jax.tree.map(
         lambda v: np.random.default_rng(v.size).uniform(0.5, 2.0, v.shape)
-        .astype(np.float32), jax.device_get(variables["batch_stats"]))
+        .astype(np.float32), variables["batch_stats"])
     load_flax(tnet, params, stats)
     p2, s2 = state_dict_to_flax(tnet, tnet.state_dict())
     for ref, got in ((params, p2), (stats, s2)):

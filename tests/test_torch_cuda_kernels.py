@@ -319,3 +319,20 @@ def test_wrappers_refuse_inputs_that_require_grad(dev, name):
     with pytest.raises(RuntimeError, match="requires grad"):
         fn(x.clone().requires_grad_(True))
     assert kernels.LAUNCHES[name] == 0
+
+
+def test_exchanges_on_gloo_with_cuda_tensors(dev, tmp_path):
+    """The channel gather (float32 and bfloat16), the depth halo with its
+    backward and the depth gather of tensor and spatial parallelism: the
+    all-reduces of a zero-filled buffer, on two gloo ranks that share the
+    card (as ``chip_smoke.py`` phase 7k runs them), equal to the same on
+    two CPU ranks."""
+    from semantic_segmentation_torch.parallel import harness
+    from semantic_segmentation_torch.parallel.launch import RankPool
+    got = {}
+    for device in ("cuda", "cpu"):
+        with RankPool(2, device, backend="gloo", timeout=300.0,
+                      workdir=str(tmp_path)) as pool:
+            got[device] = pool.run(harness.exchange_probe, device)
+    for k, want in got["cpu"].items():
+        assert torch.equal(got["cuda"][k], want), k

@@ -25,6 +25,7 @@ import torch
 
 from semantic_segmentation_tpu.models import deeplab as jdl
 from semantic_segmentation_torch.models import deeplab as tdl
+from tests.test_torch_sivae_nets import random_variables
 from semantic_segmentation_torch.utils.bridge import (flax_to_state_dict,
                                                       load_flax,
                                                       state_dict_to_flax)
@@ -63,8 +64,8 @@ def case(request):
     jnet, tnet = _nets(kind, c, k)
     s = SIZE[kind]
     x = np.random.default_rng(0).normal(size=(2, s, s, c)).astype(np.float32)
-    v = jax.device_get(jax.jit(lambda key, a: jnet.init(
-        key, a, train=False))(jax.random.key(0), jnp.asarray(x)))
+    # values drawn from the init's shapes (no flax init is compiled)
+    v = random_variables(jnet, jnp.asarray(x), train=False)
     load_flax(tnet, v["params"], v["batch_stats"])
     return request.param, kind, jnet, v, tnet, x
 

@@ -7,9 +7,13 @@ dropout layer is live in a unet_32 generator. Losses agree within rtol 1e-3
 (the uint8 chain can move a quantisation level; the largest gap is printed)
 and the arch tables within 1e-6. The first iteration also runs
 data-parallel on two gloo ranks (one row each, the same state and draws)
-and is held to the JAX engine's losses the same way, and to the port's
-single process within 1e-5 relative
-(``tests/test_torch_engine_modes.dp_first_iteration``)."""
+and tensor-parallel on them (``tp_engine_step``, mesh (data 1, model 2)),
+and each is held to the JAX engine's losses the same way, and to the
+port's single process within 1e-4 relative, the tensor-parallel step's
+gradients of G and D within 1e-5 per leaf (the unet's is printed: a
+sharded conv's other order of sums moves a fake's uint8 level now and
+then; ``tests/test_torch_engine_modes.py`` and ``_hypergrad.py`` hold it
+with float fakes) (``tests/test_torch_engine_modes.dp_first_iteration``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,7 +108,13 @@ def test_three_decay_only_iterations_match_jax(rank_pool):
             assert gap < 1e-3, (it, n, a, b)
     print(f"largest relative loss gap over 3 iterations: {worst:.3e}; two "
           f"ranks: to JAX {dp_gaps['jax']:.3e}, to one process "
-          f"{dp_gaps['single']:.3e}")
+          f"{dp_gaps['single']:.3e}; tensor-parallel (1, 2): to JAX "
+          f"{dp_gaps['tp_jax']:.3e}, to one process "
+          f"{dp_gaps['tp_single']:.3e}, gradients per leaf "
+          f"{dp_gaps['tp_grads']:.3e}; the unet's batches differ in "
+          f"{dp_gaps.get('tp_fake_levels_moved', 0.0):.3e} of their elements "
+          f"(fake uint8 levels), its gradient then "
+          f"{dp_gaps.get('tp_unet_grads_uint8', 0.0):.3e} per leaf")
     for k, v in p2p.arch.items():
         np.testing.assert_allclose(v.numpy(), np.asarray(state.arch[k]),
                                    rtol=0, atol=1e-6)

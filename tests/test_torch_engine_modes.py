@@ -28,11 +28,15 @@ once for the file.
 
 The first iteration also runs data-parallel on two gloo ranks (one row of
 the global batch each, the same state and draws, ``parallel/harness.py``)
-and is held to the JAX engine's metrics the same way (the darts term at
-the JAX engine's unrolled state), and to the port's single process within
-1e-5 relative (``arch_grad_norm`` 1e-3; ``darts``' is held as a term);
-``tests/test_torch_parallel.py`` holds the ranks to one process in every
-mode.
+and tensor-parallel on them (``tp_engine_step`` on the mesh (data 1,
+model 2): the whole batch on each, every covered layer's channels split),
+and each is held to the JAX engine's metrics the same way (the darts term
+at the JAX engine's unrolled state), and to the port's single process
+within 1e-4 relative (``arch_grad_norm`` 1e-3; ``darts``' is held as a
+term), the tensor-parallel step's gradients within 1e-5 per leaf;
+``tests/test_torch_parallel.py`` holds the data-parallel ranks to one
+process in every mode, ``tests/test_torch_tensor_parallel.py`` a (2, 2)
+mesh.
 
 Also: ``decay_only`` and ``darts`` give bit-identical arch tables and U-Net
 weights in the port under the reference wiring, and the config's
@@ -162,37 +166,88 @@ def rank_pool(tmp_path_factory):
         yield pool
 
 
+def fake_levels_moved(got: list, want: list) -> float:
+    """The share of the elements of the batches the unet took (``got``
+    against ``want``, in the same order) that differ by more than float
+    rounding (half a uint8 level), after checking that each such element
+    is on both sides a level of the uint8 chain's output (k / 255)."""
+    n = moved = 0
+    for a, b in zip(got, want, strict=True):
+        diff = (a - b).abs() > 0.5 / 255.0
+        if diff.any():
+            levels = torch.stack([a[diff], b[diff]]).double() * 255.0
+            assert (levels - levels.round()).abs().max() <= 1e-3, \
+                "a differing element is not a uint8 level"
+        n += a.numel()
+        moved += int(diff.sum())
+    return moved / n
+
+
 def dp_first_iteration(pool, argv, preset, start, step, mj, single,
                        darts_state=None):
     """The iteration ``step`` ((batches, val_batch, draws), global) on the
-    two ranks of ``pool`` from the port's ``start``, against the JAX
-    engine's metrics ``mj`` and the port's single-process ones ``single``
-    (with ``darts_state``, the port state at the JAX engine's unrolled
-    state, the darts term there stands for ``arch_grad_norm``, as in the
-    single-process check). Returns the largest relative gaps."""
+    two ranks of ``pool`` from the port's ``start``, data-parallel and then
+    tensor-parallel (``tp_engine_step`` on the mesh (data 1, model 2)),
+    against the JAX engine's metrics ``mj`` (rtol 1e-3) and the port's
+    single-process ones ``single`` (1e-4; ``arch_grad_norm`` 1e-3; with
+    ``darts_state``, the port state at the JAX engine's unrolled state, the
+    darts term there stands for ``arch_grad_norm``, as in the
+    single-process check); under tensor parallelism also the last step's
+    gradients against one process's, run alone on rank 0
+    (``harness.engine_iterations_alone``), within 1e-5 per leaf (the
+    unet's where the batches it took agree; where they do not, under the
+    uint8 chain, they may differ only in a few fake pixels by one uint8
+    level: ``fake_levels_moved``). Returns the largest relative gaps."""
     from semantic_segmentation_torch.parallel import harness
-    got = pool.run(harness.engine_iterations, tuple(argv), preset, "cpu",
-                   start, [step], False)
-    assert got["world"] == 2 and got["grad_allreduce"]["calls"] > 0
-    m = dict(got["metrics"][0])
-    if darts_state is not None:
-        hg = pool.run(harness.darts_term, tuple(argv), preset, "cpu",
-                      darts_state, step)
-        m["arch_grad_norm"] = float(torch.sqrt(sum(
-            (v ** 2).sum() for v in hg.values())))
-    gaps = {"jax": 0.0, "single": 0.0}
-    for k in mj:
-        ref, one = float(mj[k]), single[k]
-        if ref == 0.0:                    # decay_only's arch_grad_norm
-            assert m[k] == one == 0.0, k
-            continue
-        gap = abs(m[k] - ref) / abs(ref)
-        assert gap < 1e-3, ("two ranks against JAX", k, m[k], ref)
-        gap1 = abs(m[k] - one) / max(abs(one), 1e-12)
-        assert gap1 <= (1e-3 if k == "arch_grad_norm" else 1e-4), (
-            "two ranks against one process", k, m[k], one)
-        gaps["jax"], gaps["single"] = (max(gaps["jax"], gap),
-                                       max(gaps["single"], gap1))
+    float_fakes = parse_config(list(argv), preset=preset) \
+        .engine.fake_postprocess == "minmax"
+    gaps = {"jax": 0.0, "single": 0.0, "tp_jax": 0.0, "tp_single": 0.0,
+            "tp_grads": 0.0}
+    for mesh, tag in ((None, ""), ((1, 2), "tp_")):
+        got = pool.run(harness.engine_iterations, tuple(argv), preset, "cpu",
+                       start, [step], mesh is not None, mesh=mesh,
+                       record_inputs="unet")
+        assert got["world"] == 2 and got["grad_allreduce"]["calls"] > 0
+        if mesh is not None:
+            assert got["tp"]["calls"] > 0, got["tp"]
+        m = dict(got["metrics"][0])
+        if darts_state is not None:
+            hg = pool.run(harness.darts_term, tuple(argv), preset, "cpu",
+                          darts_state, step, mesh)
+            m["arch_grad_norm"] = float(torch.sqrt(sum(
+                (v ** 2).sum() for v in hg.values())))
+        for k in mj:
+            ref, one = float(mj[k]), single[k]
+            if ref == 0.0:                    # decay_only's arch_grad_norm
+                assert m[k] == one == 0.0, k
+                continue
+            gap = abs(m[k] - ref) / abs(ref)
+            assert gap < 1e-3, (tag or "dp", "two ranks against JAX", k,
+                                m[k], ref)
+            gap1 = abs(m[k] - one) / max(abs(one), 1e-12)
+            assert gap1 <= (1e-3 if k == "arch_grad_norm" else 1e-4), (
+                tag or "dp", "two ranks against one process", k, m[k], one)
+            gaps[tag + "jax"] = max(gaps[tag + "jax"], gap)
+            gaps[tag + "single"] = max(gaps[tag + "single"], gap1)
+        if mesh is not None:
+            # one process in the ranks' own setting (their thread count)
+            one = pool.run(harness.engine_iterations_alone, tuple(argv),
+                           preset, "cpu", start, [step],
+                           record_inputs="unet")
+            moved = fake_levels_moved(got["inputs"], one["inputs"])
+            for name, prob in one["state"]["problems"].items():
+                g = harness.leaf_gap(got["state"]["problems"][name]["grads"],
+                                     prob["grads"])
+                if name == "unet" and moved:
+                    # under the uint8 chain a sharded conv's other order of
+                    # sums can move a fake's uint8 level, and the unet's
+                    # gradient with it: held where the unet's batches agree
+                    assert not float_fakes and moved <= 1e-3, moved
+                    gaps["tp_unet_grads_uint8"] = g
+                    gaps["tp_fake_levels_moved"] = moved
+                    continue
+                assert g <= 1e-5, ("tp gradients", name, g)
+                gaps["tp_grads"] = max(gaps["tp_grads"], g)
     return gaps
 
 
@@ -282,7 +337,13 @@ def three_iterations_against_jax(case: str, state0, jsplits, pool=None):
           f"max |err| {arch_gap:.2e}")
     if pool is not None:
         print(f"{case}, two ranks: largest relative metric gap to JAX "
-              f"{dp_gaps['jax']:.2e}, to one process {dp_gaps['single']:.2e}")
+              f"{dp_gaps['jax']:.2e}, to one process {dp_gaps['single']:.2e};"
+              f" tensor-parallel (1, 2): to JAX {dp_gaps['tp_jax']:.2e}, to "
+              f"one process {dp_gaps['tp_single']:.2e}, gradients per leaf "
+              f"{dp_gaps['tp_grads']:.2e}; the unet's batches differ in "
+              f"{dp_gaps.get('tp_fake_levels_moved', 0.0):.2e} of their "
+              f"elements (fake uint8 levels), its gradient then "
+              f"{dp_gaps.get('tp_unet_grads_uint8', 0.0):.2e} per leaf")
     assert engine.step == ITERS
 
 

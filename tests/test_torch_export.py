@@ -31,6 +31,7 @@ from semantic_segmentation_torch.core.export import (export_seg,
 from semantic_segmentation_torch.train import export_seg as cli
 from semantic_segmentation_torch.train.common import build_seg_problem
 from semantic_segmentation_torch.utils.bridge import load_flax
+from tests.test_torch_train_unet import random_seg_state
 
 ARGV = ["--data.synthetic=true", "--data.image_size=32",
         "--model.base_features=8", "--model.compute_dtype=float32",
@@ -134,7 +135,7 @@ def test_cli_entry(tmp_path):
 def test_probabilities_equal_the_jax_artifact(classes, tmp_path):
     problem = JSegProblem("unet", 1, classes, compute_dtype=jnp.float32,
                           base_features=8, bilinear=False)
-    state = problem.init(jax.random.key(3), 32)
+    state = random_seg_state(problem, 32, seed=3)
     jcall = jload_exported(jexport_seg(problem, state.params, state.stats,
                                        32))
     net = build_seg_problem(_cfg(f"--model.classes={classes}"), "cpu").net

@@ -348,18 +348,17 @@ def test_alone_and_on_ranks(pool, engine_start):
                    steps)
     plain = harness.engine_iterations(argv, "end2end_jsrt", "cpu", None,
                                       steps)
-    one, two = rec["one"], rec["two"]
+    one, two = rec["one"], rec["runs"][0]
     assert (one["world"], two["world"]) == (1, 2)
     assert one["grad_allreduce"]["calls"] == 0 < two["grad_allreduce"][
         "calls"]
     for k, v in plain["metrics"][0].items():
         assert abs(one["metrics"][0][k] - v) <= 1e-6 * abs(v), k
         assert abs(two["metrics"][0][k] - v) <= 1e-5 * abs(v), k
-    gap = two["state_gap"]
+    gap = two["gap"]
     assert gap["grads"] <= 1e-5 and gap["bn"] <= 1e-5, gap
     assert gap["arch"] == 0.0, gap
-    assert [r["state_gap"]["params"] > 0 for r in rec["nudged"]] == [True,
-                                                                    True]
+    assert [r["gap"]["params"] > 0 for r in rec["nudged"]] == [True, True]
     print(f"alone_and_on_ranks: the ranks' state gaps {gap}")
 
 

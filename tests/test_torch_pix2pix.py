@@ -59,6 +59,21 @@ def _models(netG="unet_32", nf=8, size=32, dropout=False, seed=0):
     return jm, state, tm
 
 
+def jax_state(jm, tm):
+    """The JAX ``Pix2PixState`` of the port's ``tm`` (weights, BN
+    statistics, arch tables; fresh optimizers): flax's eager init of the
+    two nets takes some 10 s, and the port draws from the same laws."""
+    from semantic_segmentation_tpu.models.pix2pix.model import Pix2PixState
+    (gp, gs), (dp, ds) = (jax.tree.map(jnp.asarray, state_dict_to_flax(
+        net, net.state_dict())) for net in (tm.G, tm.D))
+    arch = {k: jnp.asarray(v.numpy()) for k, v in tm.arch.items()}
+    return Pix2PixState(g_params=gp, g_stats=gs, d_params=dp, d_stats=ds,
+                        arch=arch, opt_g=jm.tx_g.init(gp),
+                        opt_d=jm.tx_d.init(dp),
+                        opt_arch=jm.tx_arch.init(arch),
+                        step=jnp.zeros((), jnp.int32))
+
+
 def _batches(n, size=32, seed=1):
     rng = np.random.default_rng(seed)
     return [{"mask_pix2pix": (rng.random((2, size, size, 1)) > 0.6)

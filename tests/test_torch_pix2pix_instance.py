@@ -19,9 +19,9 @@ from semantic_segmentation_torch.core.config import parse_config
 from semantic_segmentation_torch.models.pix2pix.model import Pix2Pix
 from semantic_segmentation_torch.ops.layers import BatchNorm2d, InstanceNorm
 from semantic_segmentation_torch.train.train_pix2pix import build_pix2pix
-from semantic_segmentation_torch.utils.bridge import (load_flax,
-                                                      state_dict_to_flax)
-from tests.test_torch_pix2pix import _batches, _check_losses, _torch_batch
+from semantic_segmentation_torch.utils.bridge import state_dict_to_flax
+from tests.test_torch_pix2pix import (_batches, _check_losses, _torch_batch,
+                                     jax_state)
 
 LR, ARCH_LR, STEPS = 2e-5, 1e-4, 5
 # the convs an instance norm follows (unet_32: nd 5; the basic PatchGAN)
@@ -34,15 +34,10 @@ def _models(seed=0):
     jm = JPix2Pix(input_nc=1, output_nc=1, ngf=8, ndf=8, netG="unet_32",
                   norm="instance", use_dropout=False, lr=LR,
                   arch_lr=ARCH_LR, compute_dtype=jnp.float32)
-    state = jm.init(jax.random.key(seed), image_size=32)
     tm = Pix2Pix(1, 1, 8, 8, "unet_32", use_dropout=False, lr=LR,
-                 arch_lr=ARCH_LR, norm="instance")
-    load_flax(tm.G, jax.device_get(state.g_params))
-    load_flax(tm.D, jax.device_get(state.d_params))
-    with torch.no_grad():
-        for k, v in tm.arch.items():
-            v.copy_(torch.from_numpy(np.array(state.arch[k])))
-    return jm, state, tm
+                 arch_lr=ARCH_LR, norm="instance",
+                 generator=torch.Generator().manual_seed(seed))
+    return jm, jax_state(jm, tm), tm
 
 
 def _gaps(net, ref, normed):

@@ -89,8 +89,10 @@ def test_pixel_discriminator():
                                            ("pixel", 0)])
 def test_define_d_dispatch_and_counts(netD, n_layers):
     jd = jdefine_D(netD, 4, n_layers or 3, "batch", jnp.float32)
-    params = jd.init(jax.random.key(0), jnp.zeros((1, 32, 32, 4)))["params"]
-    n_j = sum(np.size(v) for v in jax.tree_util.tree_leaves(params))
+    params = jax.eval_shape(lambda: jd.init(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 4))))["params"]
+    n_j = sum(int(np.prod(v.shape))
+              for v in jax.tree_util.tree_leaves(params))
     td = define_D(4, netD, 4, n_layers or 3, _gen())
     assert sum(p.numel() for p in td.parameters()) == n_j
     with pytest.raises(NotImplementedError):

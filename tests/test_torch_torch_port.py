@@ -37,6 +37,7 @@ from semantic_segmentation_torch.utils import torch_port
 from semantic_segmentation_torch.utils.bridge import (flax_to_state_dict,
                                                       load_flax)
 from tests.test_swin_port import fake_timm_sd
+from tests.test_torch_sivae_nets import random_variables
 from torch_oracles import TorchDeepLabV2, TorchDeepLabV3, TorchMilesialUNet
 
 L4 = (1, 1, 1, 1)
@@ -64,8 +65,8 @@ def _np(sd):
 def _same_as_jax(tnet, jnet, x_shape, ported, jported):
     """``tnet`` with ``ported`` overlaid equals the JAX init (the same
     one, bridged into ``tnet`` first) with ``jported`` overlaid."""
-    v = jax.device_get(jax.jit(lambda k, x: jnet.init(k, x, train=False))(
-        jax.random.key(0), jnp.zeros(x_shape)))
+    # values drawn from the init's shapes (no flax init is compiled)
+    v = random_variables(jnet, jnp.zeros(x_shape), train=False)
     load_flax(tnet, v["params"], v.get("batch_stats", {}))
     fresh = {k: t.clone() for k, t in tnet.state_dict().items()}
     torch_port.overlay(tnet, ported)

@@ -26,6 +26,7 @@ from semantic_segmentation_torch.data.pipeline import batch_iterator
 from semantic_segmentation_torch.train import train_unet
 from semantic_segmentation_torch.train.common import (build_seg_problem,
                                                       load_splits)
+from tests.test_torch_sivae_nets import random_variables
 from semantic_segmentation_torch.utils.bridge import (flax_to_state_dict,
                                                       load_flax)
 
@@ -40,10 +41,24 @@ def start():
     problem = JSegProblem("unet", 1, 1, lr=cfg.optim.unet_lr,
                           compute_dtype=jnp.float32, base_features=8,
                           bilinear=False)
-    state = problem.init(jax.random.key(0), 32)
+    state = random_seg_state(problem, 32)
     batches = list(batch_iterator(load_splits(cfg)["train"], 2,
                                   np.random.default_rng((0, 0))))
     return cfg, problem, state, batches
+
+
+def random_seg_state(problem, size: int, seed: int = 0):
+    """A JAX ``SegState`` for ``problem`` at ``size``: the net's variables
+    drawn from the init's shapes (``random_variables``: no flax init is
+    compiled, which eagerly runs hundreds of small programs), the
+    optimizer's state its own init."""
+    from semantic_segmentation_tpu.models.seg import SegState
+    v = random_variables(problem.model, jnp.zeros(
+        (1, size, size, problem.model.n_channels)), train=False, seed=seed)
+    params = jax.tree.map(jnp.asarray, v["params"])
+    return SegState(params=params, stats=jax.tree.map(
+        jnp.asarray, v.get("batch_stats", {})), opt=problem.tx.init(params),
+        step=jnp.zeros((), jnp.int32))
 
 
 def _port(cfg, state):
