@@ -390,18 +390,51 @@ def _log_mode_notes(log, e):
                  "that decay_only drops: use darts or unroll.")
 
 
-def _rank_train(cfg: Config, train_iters, device):
+def _rank_train(cfg: Config, train_iters, device, init_state=None):
     """``train`` on one rank that ``train`` started: rank 0's engine state
     (on the CPU) and results."""
-    engine, results = train(cfg, train_iters, device)
+    engine, results = train(cfg, train_iters, device, init_state)
     return to_cpu(engine.state_dict()), results
 
 
-def train(cfg: Config, train_iters: int | None = None, device=None):
+def build_state(cfg: Config, device=None) -> dict:
+    """The engine state ``train(cfg, ..., device)`` starts from, on the CPU,
+    for a script to edit and pass back as ``train``'s ``init_state`` (the
+    JAX package's ``init_engine_state``): the ``state_dict()`` of the
+    engine ``build_engine`` makes on ``device`` (the draws' generators have
+    a device's format), the stage-1 and segmenter checkpoints of ``cfg``
+    loaded."""
+    engine, _, _ = build_engine(cfg, resolve_device(device or
+                                                    cfg.run.device))
+    return to_cpu(engine.state_dict())
+
+
+def load_init_state(engine: BilevelEngine, init_state: dict):
+    """Start ``engine`` from ``init_state`` (a ``state_dict()``, as
+    ``build_state`` gives it) in place of its fresh state. An entry given as
+    None stays the fresh one: the JAX package's NAS warm start gives the
+    arch tables' Adam a fresh state (``opt_arch =
+    engine.arch_tx.init(arch)``), here ``init_state['arch_optimizer'] =
+    None``. A key, problem or shape the engine does not hold raises."""
+    fresh = engine.state_dict()
+    unknown = set(init_state) - set(fresh)
+    if unknown:
+        raise ValueError(f"init_state: unknown keys {sorted(unknown)}")
+    engine.load_state_dict({k: fresh[k] if init_state.get(k) is None else
+                            init_state[k] for k in fresh})
+
+
+def train(cfg: Config, train_iters: int | None = None, device=None,
+          init_state: dict | None = None):
     """Train ``cfg`` on ``device`` (default ``cfg.run.device``, 'cuda').
     Returns (engine, results); ``results['chunks']`` has one record per
     validation interval this call ran: iterations, wall seconds (ending in
     a device sync), losses and val score.
+
+    ``init_state`` (JAX ``train``'s): an engine state to start from in
+    place of the fresh one (``build_state``, edited; ``load_init_state``),
+    loaded on every rank. A resumed run (``run.resume`` with a checkpoint)
+    continues from its checkpoint, which the run saved from that start.
 
     Run artifacts under ``<save_dir>/<name>``: ``metrics.jsonl`` (losses,
     ``val_score``, ``best_val`` and ``iters_per_sec`` per interval, the arch
@@ -415,7 +448,8 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
     mesh = mesh_from_config(cfg)
     if mesh is not None and not dist.is_initialized():
         state, results = launch.run_ranks(
-            _rank_train, mesh.size, (cfg, train_iters, device),
+            _rank_train, mesh.size,
+            (cfg, train_iters, device, to_cpu(init_state)),
             mesh.device_type)
         engine, _, _ = build_engine(cfg, resolve_device(device or
                                                         cfg.run.device))
@@ -423,6 +457,8 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
         return engine, results
     dev = rank_device(resolve_device(device or cfg.run.device))
     engine, p2p, seg = build_engine(cfg, dev)
+    if init_state is not None:
+        load_init_state(engine, init_state)
     replicate_state(mesh, engine)
     amp = autocast_for(cfg, dev)
     val_metric = seg_metric(cfg)
@@ -477,7 +513,9 @@ def train(cfg: Config, train_iters: int | None = None, device=None):
                 best_val, it = float(h["best_val"]), int(h["it"])
                 best_unet = {k: v.to(dev) for k, v in h["best_unet"].items()}
                 plateau.load_state_dict(h["plateau"])
-                log.info("resumed from checkpoint at step %d", it)
+                log.info("resumed from checkpoint at step %d%s", it,
+                         "" if init_state is None else
+                         " (in place of init_state)")
         streams, val_stream = index_streams(cfg, n_train, n_val, start=it)
 
         chunks = []

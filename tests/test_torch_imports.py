@@ -18,6 +18,10 @@ def _sources():
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "profile_torch_end2end.py",
                     ROOT / "scripts" / "ab_torch_trainer.py",
+                    ROOT / "scripts" / "drift_torch_chaos_control.py",
+                    ROOT / "scripts" / "validate_torch_learning.py",
+                    ROOT / "scripts" / "nas_torch_flagship.py",
+                    ROOT / "scripts" / "nas_torch_win.py",
                     ROOT / "tests" / "test_torch_cuda_kernels.py"]
 
 

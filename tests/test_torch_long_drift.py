@@ -20,10 +20,15 @@ are printed (``-s``).
 
 The port runs on one thread, as ``test_long_drift`` runs its oracle: the
 final Dice is chaotic in the sums' order, and another thread count
-reorders them."""
+reorders them.
+
+The JAX engine, its initial state and its jitted ``engine_step`` are built
+once for the file (``jax_side``): the second test runs
+``scripts/drift_torch_ensemble.py``'s per-seed function on them."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from semantic_segmentation_tpu.ops.augment import sample_affine_batch
@@ -63,12 +68,21 @@ def _unet_affines(key):
     return torch.from_numpy(np.array(_jax_affines(key)))
 
 
-def test_port_engine_stays_in_the_long_drift_envelope(tmp_path):
-    jcfg = tiny_cfg(str(tmp_path), **{"engine.fake_postprocess": "minmax",
-                                      "engine.hypergrad": "decay_only",
-                                      "model.no_dropout": True})
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory):
+    """(engine, initial state, seg, jitted engine_step) of the JAX engine,
+    compiled once for the file."""
+    jcfg = tiny_cfg(str(tmp_path_factory.mktemp("jax")),
+                    **{"engine.fake_postprocess": "minmax",
+                       "engine.hypergrad": "decay_only",
+                       "model.no_dropout": True})
     engine_j, state, _, seg_j = build_engine_and_state(jcfg,
                                                        jax.random.key(5))
+    return engine_j, state, seg_j, jax.jit(engine_j.engine_step)
+
+
+def test_port_engine_stays_in_the_long_drift_envelope(jax_side):
+    engine_j, state, seg_j, step_j = jax_side
     cfg = parse_config(ARGV)
     engine, p2p, seg = build_engine(cfg, "cpu")
     host = jax.device_get(state)
@@ -85,7 +99,6 @@ def test_port_engine_stays_in_the_long_drift_envelope(tmp_path):
         image = rng_np.random((2, 32, 32, 1)).astype(np.float32)
         return mask, image
 
-    step_j = jax.jit(engine_j.engine_step)
     ours = {"netG": [], "netD": [], "unet": []}
     theirs = {"netG": [], "netD": [], "unet": []}
     for step in range(N_STEPS):
@@ -134,3 +147,65 @@ def test_port_engine_stays_in_the_long_drift_envelope(tmp_path):
     print(f"port vs JAX engine, {N_STEPS} steps: early rel max "
           f"{early:.2e}, windowed unet-loss drift max {rel.max():.4f}, "
           f"final dice port {d_port:.4f} jax {d_jax:.4f}")
+
+
+def test_drift_ensemble_seed_function(jax_side):
+    """``scripts/drift_torch_ensemble.run_seed`` for 3 iterations on the
+    file's JAX compile, with its controls: trajectory (b), the port on the
+    JAX initial weights, within the early tolerance of the JAX losses
+    (``test_long_drift.py:236``); a control with eps = 0 equal to (b) bit
+    for bit (losses and final Dice); the 1-ulp control (c) apart from
+    (b)."""
+    from scripts import drift_torch_ensemble as ens
+    engine_j, state, seg_j, step_j = jax_side
+    rec, losses = ens.run_seed(0, 3, engine_j, state, step_j, seg_j, 32,
+                               ens.port_argv(), controls=(("zero", 0.0),
+                                                          ("ulp", 1e-7)))
+    for n in ("netG", "netD", "unet"):
+        np.testing.assert_allclose(losses["base"][n], losses["jax"][n],
+                                   rtol=5e-3, atol=5e-4, err_msg=n)
+        assert losses["zero"][n] == losses["base"][n], n
+    assert rec["final_dice_torch_zero"] == rec["final_dice_torch"]
+    assert losses["ulp"]["unet"] != losses["base"]["unet"]
+    assert rec["early20_max_rel"]["unet"] < 5e-3
+
+
+def test_drift_ensemble_one_step_deviation(jax_side):
+    """``epsilon`` mode's measure on the file's compile (the JAX state of
+    seed 0): one paired iteration leaves the losses within 1e-5 relative;
+    the sign flips of the updates are counted per tensor, a small share of
+    the elements, and setting them aside shrinks no gap below 0 nor raises
+    it."""
+    from scripts import drift_torch_ensemble as ens
+    engine_j, state, seg_j, step_j = jax_side
+    d = ens.one_step_deviation(0, state, step_j, 32)
+    assert d["loss_rel_max"] < 1e-5
+    assert 0 <= d["sign_flips"] < 0.01 * d["elements"]
+    assert d["tensors"] == len(jax.tree.leaves(state.params))
+    assert d["param_rel_norm_unflipped"] <= d["param_rel_norm"]
+    top = d["largest_tensors"]
+    assert [r["rel"] for r in top] == sorted((r["rel"] for r in top),
+                                             reverse=True)
+    assert all(r["rel_unflipped"] <= r["rel"] and 0 <= r["sign_flips"]
+               <= r["n"] for r in top)
+
+
+def test_drift_ensemble_summary_takes_any_controls():
+    """The ensemble's summary over the controls a run names: per control its
+    spreads, mean, maximum and Mann-Whitney p of the gap against them."""
+    from scripts import drift_torch_ensemble as ens
+    recs = [{"seed": s, "gap_jax_vs_torch_pt": g,
+             "spread_torch_vs_torch_ulp_pt": u,
+             "spread_torch_vs_torch_param_pt": q,
+             "early20_max_rel": {"unet": 1e-4}, "windowed_unet_rel_max": w}
+            for s, g, u, q, w in ((0, 1.0, 2.0, 3.0, 0.002),
+                                  (1, 4.0, 0.5, 1.0, None),
+                                  (2, 2.0, 1.0, 5.0, 0.004))]
+    out = ens.summary(recs, 1000, (("ulp", 1e-7), ("param", 2e-5)))
+    assert out["eps_param"] == 2e-5 and out["seeds"] == [0, 1, 2]
+    assert out["param_mean_pt"] == 3.0 and out["param_max_pt"] == 5.0
+    assert out["ulp_max_pt"] == 2.0 and out["gap_max_pt"] == 4.0
+    assert 0 < out["mannwhitney_gap_vs_param_p"] <= 1
+    assert out["windowed_unet_rel_max_all"] == 0.004
+    assert ens.parse_controls("ulp=1e-07,param=2.2e-05") == (
+        ("ulp", 1e-7), ("param", 2.2e-5))
